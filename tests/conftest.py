@@ -14,6 +14,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-device subprocess test "
                    "(opt in with --run-slow)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the repro_torch kernels); "
+                   "skips where none is present")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,321 @@
+"""The plain versions of repro_torch's four CUDA kernels against the JAX
+package's kernels and oracles, and the wrappers' device routing.
+
+On the CPU each kernel wrapper runs its plain PyTorch version (``ref.py``),
+which follows the CUDA kernel's own formulation (per-row ELL scans, weight
+tables and one sort for the revert) rather than the composed sort path.
+Here that plain version is held to the JAX package on identical inputs
+made from a numpy seed:
+
+* ``lp_move`` (both admission forms) to ``lp_move_chunk_ref``;
+* ``seg_merge`` to the Pallas ``seg_merge`` in interpret mode and to the
+  composed ``seg_merge_ref``; the fused dedup to ``dedup_arcs``;
+* ``bal_scores`` (restricted or not) to ``bal_scores_ref``;
+* ``greedy_pick`` to the Pallas ``greedy_pick`` in interpret mode and to
+  ``greedy_pick_ref``.
+
+Integer outputs are compared exactly. The f32 relative gain ``rel`` is
+compared exactly too: both sides convert the same int32 gain, take the
+same ``max(vw, 1)`` and do one IEEE multiply or divide on it, so there is
+no rounding to differ. The kernels themselves run only on a GPU: the
+``gpu`` tests hold each one to its plain version there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.contraction import dedup_arcs as ref_dedup_arcs  # noqa: E402
+from repro.kernels.bal_round import bal_round as ref_bal  # noqa: E402
+from repro.kernels.bal_round import ref as ref_bal_ref  # noqa: E402
+from repro.kernels.lp_move import ref as ref_lp_ref  # noqa: E402
+from repro.kernels.seg_merge import ref as ref_seg_ref  # noqa: E402
+from repro.kernels.seg_merge import seg_merge as ref_seg  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bal_round import bal_round  # noqa: E402
+from repro_torch.kernels.lp_move import lp_move  # noqa: E402
+from repro_torch.kernels.seg_merge import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.seg_merge import seg_merge  # noqa: E402
+
+I32_MAX = 2**31 - 1
+
+
+def t32(x):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+
+
+# ---------------------------------------------------------------------------
+# lp_move
+# ---------------------------------------------------------------------------
+
+def _move_inputs(seed, R=64, D=96, n_labels=24, W=12):
+    """ELL chunk operands with production padding: sentinel lanes (label
+    -1, weight 0, cluster weight I32_MAX), fully padded tail rows."""
+    rng = np.random.default_rng(seed)
+    nlab = rng.integers(0, n_labels, (R, D)).astype(np.int32)
+    nlab[rng.random((R, D)) < 0.25] = -1
+    nlab[-4:] = -1
+    nw = np.where(nlab >= 0, rng.integers(1, 6, (R, D)), 0).astype(np.int32)
+    ncw = np.where(nlab >= 0, rng.integers(0, 2 * W + 2, (R, D)),
+                   I32_MAX).astype(np.int32)
+    nbud = rng.integers(0, 2 * W + 2, (R, D)).astype(np.int32)
+    own = rng.integers(0, n_labels, R).astype(np.int32)
+    vw = rng.integers(1, 4, R).astype(np.int32)
+    v0 = int(rng.integers(0, 1000))
+    salt = int(rng.integers(0, 2**32))
+    return nlab, nw, ncw, nbud, own, vw, v0, salt, n_labels, W
+
+
+@pytest.mark.parametrize("fit_sum", [True, False])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_lp_move_plain_matches_reference(fit_sum, seed):
+    nlab, nw, ncw, nbud, own, vw, v0, salt, nl, W = _move_inputs(seed)
+    scal = np.array([[W, v0]], dtype=np.int32)
+    jargs = [jnp.asarray(x) for x in (nlab, nw, ncw, own[:, None],
+                                      vw[:, None], scal)]
+    jargs.append(jnp.asarray(np.array([[salt]], dtype=np.uint32)))
+    r_moved, r_tgt = ref_lp_ref.lp_move_chunk_ref(
+        *jargs, None if fit_sum else jnp.asarray(nbud), fit_sum=fit_sum)
+    moved, tgt = lp_move.lp_move_chunk(
+        t32(nlab), t32(nw), t32(ncw), t32(own), t32(vw), W, v0, salt, nl,
+        nbud=None if fit_sum else t32(nbud))
+    np.testing.assert_array_equal(moved.numpy(), np.asarray(r_moved)[:, 0])
+    np.testing.assert_array_equal(tgt.numpy(), np.asarray(r_tgt)[:, 0])
+    assert not moved.numpy()[-4:].any()
+
+
+def test_lp_move_plain_reverts_over_budget_movers():
+    """Many rows pulled to one light label: the revert must cut the
+    movers back in (rank, row) order exactly as the reference does."""
+    R, D, W = 48, 4, 10
+    nlab = np.full((R, D), -1, np.int32)
+    nlab[:, 0] = 7
+    nw = np.where(nlab >= 0, 3, 0).astype(np.int32)
+    ncw = np.where(nlab >= 0, 1, I32_MAX).astype(np.int32)
+    own = (100 + np.arange(R)).astype(np.int32)
+    vw = np.full(R, 2, np.int32)
+    scal = np.array([[W, 5]], np.int32)
+    salt = np.array([[99]], np.uint32)
+    r_moved, _ = ref_lp_ref.lp_move_chunk_ref(
+        *(jnp.asarray(x) for x in (nlab, nw, ncw, own[:, None],
+                                   vw[:, None], scal, salt)))
+    moved, tgt = lp_move.lp_move_chunk(t32(nlab), t32(nw), t32(ncw),
+                                       t32(own), t32(vw), W, 5, 99, 200)
+    np.testing.assert_array_equal(moved.numpy(), np.asarray(r_moved)[:, 0])
+    assert 0 < int(moved.sum()) < R                  # some kept, some not
+    assert (tgt.numpy() == 7).all()
+
+
+# ---------------------------------------------------------------------------
+# seg_merge
+# ---------------------------------------------------------------------------
+
+def _records(seed, L, ids):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, ids, L).astype(np.int32)
+    dst = rng.integers(0, ids, L).astype(np.int32)
+    w = rng.integers(1, 9, L).astype(np.int32)
+    pad = rng.random(L) < 0.2
+    src[pad] = dst[pad] = I32_MAX
+    w[pad] = 0
+    return src, dst, w
+
+
+@pytest.mark.parametrize("seed,L,ids", [(0, 256, 6), (1, 200, 30),
+                                        (2, 5, 2), (3, 1, 3)])
+def test_seg_merge_plain_matches_pallas_and_oracle(seed, L, ids):
+    src, dst, w = _records(seed, L, ids)
+    got = seg_merge.seg_merge(t32(src), t32(dst), t32(w))
+    pallas = ref_seg.seg_merge(src, dst, w, interpret=True)
+    oracle = ref_seg_ref.seg_merge_ref(jnp.asarray(src), jnp.asarray(dst),
+                                       jnp.asarray(w))
+    for a, b, c in zip(got, pallas, oracle):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_dedup_matches_reference_dedup_arcs(seed):
+    rng = np.random.default_rng(seed)
+    m = 300
+    csrc = rng.integers(0, 25, m)
+    cdst = rng.integers(0, 25, m)
+    w = rng.integers(1, 7, m)
+    assert seg_ops.dedup_fits(csrc, cdst, w)
+    got = seg_ops.dedup_arcs_fused(csrc, cdst, w, torch.device("cpu"))
+    want = ref_dedup_arcs(csrc, cdst, w, kernel="composed")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.int64
+        np.testing.assert_array_equal(a, b)
+
+
+def test_dedup_fit_check_keeps_int32_limits_only():
+    a = np.array([0, 1], dtype=np.int64)
+    assert seg_ops.dedup_fits(a, a[::-1], np.array([1, 1]))
+    assert not seg_ops.dedup_fits(a[:0], a[:0], a[:0])
+    assert not seg_ops.dedup_fits(np.array([0, I32_MAX]), a, a)
+    assert not seg_ops.dedup_fits(a, a, np.array([2**30, 2**30]))
+    big = np.zeros(9 * 2**20, dtype=np.int64)   # far beyond any VMEM gate
+    assert seg_ops.dedup_fits(big, big + 1, np.ones_like(big))
+
+
+def test_fused_dedup_raises_outside_int32_instead_of_falling_back():
+    """Records the int32 kernel cannot merge exactly raise on every device;
+    the numpy path is taken only under ``kernel="composed"``."""
+    a = np.array([0, 1, 2], dtype=np.int64)
+    heavy = np.array([2**30, 1, 2**30], dtype=np.int64)
+    with pytest.raises(ValueError, match="int32"):
+        seg_ops.dedup_arcs_fused(a, a[::-1], heavy, torch.device("cpu"))
+    with pytest.raises(ValueError, match="int32"):
+        seg_ops.dedup_arcs_fused(np.array([0, I32_MAX]), a[:2], a[:2],
+                                 torch.device("cpu"))
+    # self loops only: nothing left to merge, nothing to check
+    out = seg_ops.dedup_arcs_fused(a, a, heavy, torch.device("cpu"))
+    assert all(x.size == 0 for x in out)
+
+
+# ---------------------------------------------------------------------------
+# bal_scores / greedy_pick
+# ---------------------------------------------------------------------------
+
+def _bal_inputs(seed, k, restricted, R=64, D=96):
+    rng = np.random.default_rng(seed)
+    nlab = rng.integers(0, k, (R, D)).astype(np.int32)
+    nlab[rng.random((R, D)) < 0.25] = -1
+    nlab[-4:] = -1
+    nw = np.where(nlab >= 0, rng.integers(1, 6, (R, D)), 0).astype(np.int32)
+    nbw = rng.integers(0, 40, (R, D)).astype(np.int32)
+    nlm = rng.integers(10, 40, (R, D)).astype(np.int32)
+    cols = [rng.integers(0, k, R), rng.integers(1, 4, R),
+            (rng.random(R) < 0.5), np.arange(R) < R - 4,
+            rng.integers(0, k, R), (rng.random(R) < 0.5)]
+    cols = [c.astype(np.int32) for c in cols]
+    salt = int(rng.integers(0, 2**32))
+    kw = {}
+    if restricted:
+        par = rng.integers(0, max(1, k // 2), k + 1).astype(np.int32)
+        kw = {"npar": np.where(nlab >= 0, par[np.maximum(nlab, 0)],
+                               -2).astype(np.int32),
+              "opar": par[cols[0]]}
+    return [nlab, nw, nbw, nlm] + cols, salt, kw
+
+
+@pytest.mark.parametrize("restricted", [False, True])
+@pytest.mark.parametrize("seed,k", [(0, 2), (1, 9), (2, 32)])
+def test_bal_scores_plain_matches_reference(restricted, seed, k):
+    arrs, salt, kw = _bal_inputs(seed, k, restricted)
+    jargs = [jnp.asarray(a) for a in arrs[:4]]
+    jargs += [jnp.asarray(c[:, None]) for c in arrs[4:]]
+    jargs.append(jnp.asarray(np.array([[salt]], dtype=np.uint32)))
+    jkw = {}
+    if restricted:
+        jkw = {"npar": jnp.asarray(kw["npar"]),
+               "opar": jnp.asarray(kw["opar"][:, None])}
+    r_rel, r_tgt = ref_bal_ref.bal_scores_ref(*jargs, **jkw,
+                                              restricted=restricted)
+    rel, tgt = bal_round.bal_scores(*(t32(a) for a in arrs), salt,
+                                    **{k_: t32(v) for k_, v in kw.items()})
+    assert rel.dtype == torch.float32
+    # exact: same int32 gain, same f32 convert / max / one mul or div
+    np.testing.assert_array_equal(rel.numpy(), np.asarray(r_rel)[:, 0])
+    np.testing.assert_array_equal(tgt.numpy(), np.asarray(r_tgt)[:, 0])
+    assert np.all(rel.numpy()[-4:] == -np.inf)
+
+
+@pytest.mark.parametrize("seed,M,K", [(0, 64, 16), (1, 128, 64),
+                                      (2, 7, 3), (3, 128, 8192)])
+def test_greedy_pick_plain_matches_pallas_and_oracle(seed, M, K):
+    rng = np.random.default_rng(seed)
+    vals = np.sort(rng.standard_normal(M).astype(np.float32))[::-1].copy()
+    vals[rng.random(M) < 0.3] = -np.inf
+    tgt = rng.integers(0, K, M).astype(np.int32)
+    src = rng.integers(0, K, M).astype(np.int32)
+    cw = rng.integers(1, 5, M).astype(np.int32)
+    bw = rng.integers(0, 60, K).astype(np.int32)
+    lm = rng.integers(10, 50, K).astype(np.int32)
+    acc, bw_out = bal_round.greedy_pick(torch.from_numpy(vals), t32(tgt),
+                                        t32(src), t32(cw), t32(bw), t32(lm))
+    jx = [jnp.asarray(x) for x in (vals, tgt, src, cw, bw, lm)]
+    p_acc, p_bw = ref_bal.greedy_pick(*jx, interpret=True)
+    r_acc, r_bw = ref_bal_ref.greedy_pick_ref(*jx)
+    assert acc.dtype == torch.bool and bw_out.dtype == torch.int32
+    for want_acc, want_bw in ((p_acc, p_bw), (r_acc, r_bw)):
+        np.testing.assert_array_equal(acc.numpy(), np.asarray(want_acc))
+        np.testing.assert_array_equal(bw_out.numpy(), np.asarray(want_bw))
+
+
+# ---------------------------------------------------------------------------
+# wrappers: CPU tensors take the plain version; nothing else falls back
+# ---------------------------------------------------------------------------
+
+def _small_calls(device):
+    nlab, nw, ncw, _, own, vw, v0, salt, nl, W = _move_inputs(9, R=8, D=4)
+    src, dst, w = _records(9, 16, 4)
+    arrs, bsalt, _ = _bal_inputs(9, 4, False, R=8, D=4)
+    vals = torch.zeros(4, dtype=torch.float32, device=device)
+    i4 = torch.zeros(4, dtype=torch.int32, device=device)
+    i8 = torch.zeros(8, dtype=torch.int32, device=device)
+    on = (lambda x: t32(x).to(device))
+    return {
+        "lp_move": lambda: lp_move.lp_move_chunk(
+            on(nlab), on(nw), on(ncw), on(own), on(vw), W, v0, salt, nl),
+        "seg_merge": lambda: seg_merge.seg_merge(on(src), on(dst), on(w)),
+        "bal_scores": lambda: bal_round.bal_scores(
+            *(on(a) for a in arrs), bsalt),
+        "greedy_pick": lambda: bal_round.greedy_pick(vals, i4, i4, i4, i8,
+                                                     i8),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
+                                    "greedy_pick"])
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
+    before = dict(_build.LAUNCHES)
+    out = _small_calls(torch.device("cpu"))[kernel]()
+    assert all(t.device.type == "cpu" for t in out)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
+                                    "greedy_pick"])
+def test_other_devices_raise_instead_of_falling_back(kernel):
+    with pytest.raises(ValueError, match="unsupported device"):
+        _small_calls(torch.device("meta"))[kernel]()
+
+
+def test_build_is_lazy_and_content_hashed():
+    """Importing the kernel modules builds nothing; each library's name
+    carries the hash of its sources and flags."""
+    target = _build._target("lp_move")
+    assert target.parent == _build.BUILD_DIR
+    assert target.name.startswith("lp_move-") and target.suffix == ".so"
+    assert _build._libs == {}
+    assert set(_build.SOURCES) == {"lp_move", "seg_merge", "bal_round"}
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
+                                    "greedy_pick"])
+def test_kernel_matches_plain_version_on_gpu(kernel, cuda_device):
+    before = _build.LAUNCHES[kernel]
+    got = _small_calls(cuda_device)[kernel]()
+    torch.cuda.synchronize()
+    want = _small_calls(torch.device("cpu"))[kernel]()
+    assert _build.LAUNCHES[kernel] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
