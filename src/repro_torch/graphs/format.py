@@ -171,6 +171,29 @@ def degree_bucket_order(g: Graph, rng: np.random.Generator,
     return np.concatenate(out) if out else np.empty(0, dtype=np.int64)
 
 
+def to_ell(g: Graph, max_degree: Optional[int] = None
+           ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """ELL (padded row) format: (n, d) neighbor ids and weights.
+
+    Rows longer than ``max_degree`` are truncated (callers that need
+    exactness must check ``degrees().max()`` first). Padding uses
+    ``n`` as a sentinel neighbor with weight 0.
+    """
+    deg = g.degrees()
+    d = int(deg.max()) if deg.size else 0
+    if max_degree is not None:
+        d = min(d, max_degree)
+    d = max(d, 1)
+    idx = np.full((g.n, d), g.n, dtype=np.int64)
+    wgt = np.zeros((g.n, d), dtype=np.int64)
+    pos = np.minimum(np.arange(g.m) - np.repeat(g.indptr[:-1], deg), d - 1)
+    rows = g.arc_tails()
+    take = (np.arange(g.m) - g.indptr[rows]) < d
+    idx[rows[take], pos[take]] = g.adjncy[take]
+    wgt[rows[take], pos[take]] = g.eweights[take]
+    return idx, wgt, d
+
+
 def induced_subgraph(g: Graph, mask: np.ndarray
                      ) -> Tuple[Graph, np.ndarray]:
     """Subgraph induced by ``mask`` (bool over vertices).

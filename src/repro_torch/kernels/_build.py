@@ -29,12 +29,14 @@ from typing import Dict, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build"
-SOURCES = ("lp_move", "seg_merge", "bal_round")
+SOURCES = ("lp_move", "seg_merge", "bal_round", "lp_gain", "bsr_spmm",
+           "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"lp_move": 0, "seg_merge": 0, "bal_scores": 0,
-                            "greedy_pick": 0}
+                            "greedy_pick": 0, "lp_gain": 0, "bsr_spmm": 0,
+                            "embedding_bag": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -151,6 +153,19 @@ def ptr(t) -> int:
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_index_range(what: str, t, hi: int) -> None:
+    """Raise unless every entry of the integer tensor ``t`` lies in
+    [0, hi). On the card this reads two numbers back, so it waits for
+    the stream."""
+    if t.numel() == 0:
+        return
+    import torch
+    lo, top = torch.stack(t.aminmax()).tolist()
+    if lo < 0 or top >= hi:
+        raise ValueError(f"{what}: index out of range [0, {hi}): found "
+                         f"{lo if lo < 0 else top}")
 
 
 def require(what: str, t, dtype, shape, device) -> None:

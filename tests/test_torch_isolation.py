@@ -71,7 +71,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
         "from repro_torch import api\n"
         "from repro_torch.core import coarsening, deep_mgp\n"
         "from repro_torch.graphs import generators\n"
+        "from repro_torch.kernels.bsr_spmm import ops as bsr_ops\n"
+        "from repro_torch.kernels.embedding_bag import ops as eb_ops\n"
+        "from repro_torch.kernels.lp_gain import ops as gain_ops\n"
         "g = generators.make('rgg2d', 300, 8.0, seed=1)\n"
+        "lab = np.arange(g.n) % 4\n"
+        "cw = np.bincount(lab, minlength=4)\n"
+        "x = np.ones((g.n, 3), np.float32)\n"
+        "idx = np.zeros((5, 2), np.int32)\n"
+        "tab = np.ones((3, 4), np.float32)\n"
         "cfg = deep_mgp.PartitionerConfig(contraction_limit=50,\n"
         "                                 num_chunks=2, ip_repetitions=1)\n"
         "calls = {\n"
@@ -79,6 +87,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
         "  'partition': lambda: deep_mgp.partition(g, 4, cfg),\n"
         "  'cluster': lambda: coarsening.cluster(g, 10),\n"
         "  'api.partition': lambda: api.partition(g, 4, config=cfg),\n"
+        "  'lp_gain': lambda: gain_ops.lp_gain(g, lab, cw, 100.0),\n"
+        "  'spmm': lambda: bsr_ops.spmm(g, x),\n"
+        "  'embedding_bag': lambda: eb_ops.embedding_bag(idx, tab),\n"
         "}\n"
         "for name, fn in calls.items():\n"
         "    try:\n"
@@ -91,6 +102,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
         "assert res.feasible and res.assignment.shape == (g.n,)\n"
         "part = deep_mgp.partition(g, 4, cfg, device='cpu')\n"
         "assert np.array_equal(part, res.assignment)\n"
+        "gain, tgt, own = gain_ops.lp_gain(g, lab, cw, 100.0, device='cpu')\n"
+        "assert gain.shape == tgt.shape == own.shape == (g.n,)\n"
+        "assert bsr_ops.spmm(g, x, device='cpu').shape == (g.n, 3)\n"
+        "assert (eb_ops.embedding_bag(idx, tab, device='cpu') == 2).all()\n"
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout

@@ -1,5 +1,7 @@
-"""The plain versions of repro_torch's four CUDA kernels against the JAX
-package's kernels and oracles, and the wrappers' device routing.
+"""The plain versions of repro_torch's four main-path CUDA kernels against
+the JAX package's kernels and oracles, and the device routing of all
+seven kernel wrappers (the three off the main path have their parity
+tests in ``test_torch_micro_kernels.py``).
 
 On the CPU each kernel wrapper runs its plain PyTorch version (``ref.py``),
 which follows the CUDA kernel's own formulation (per-row ELL scans, weight
@@ -35,6 +37,9 @@ from repro.kernels.seg_merge import ref as ref_seg_ref  # noqa: E402
 from repro.kernels.seg_merge import seg_merge as ref_seg  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bal_round import bal_round  # noqa: E402
+from repro_torch.kernels.bsr_spmm import bsr_spmm  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: E402
+from repro_torch.kernels.lp_gain import lp_gain  # noqa: E402
 from repro_torch.kernels.lp_move import lp_move  # noqa: E402
 from repro_torch.kernels.seg_merge import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.seg_merge import seg_merge  # noqa: E402
@@ -258,6 +263,12 @@ def _small_calls(device):
     i4 = torch.zeros(4, dtype=torch.int32, device=device)
     i8 = torch.zeros(8, dtype=torch.int32, device=device)
     on = (lambda x: t32(x).to(device))
+    f32 = (lambda x: torch.from_numpy(np.asarray(x, dtype=np.float32))
+           .to(device))
+    rng = np.random.default_rng(9)
+    lab = rng.integers(-1, 3, (8, 4))
+    g_own = rng.integers(0, 3, (8, 1))
+    blocks = rng.integers(0, 3, (4, 4, 4))      # integer-valued: exact sums
     return {
         "lp_move": lambda: lp_move.lp_move_chunk(
             on(nlab), on(nw), on(ncw), on(own), on(vw), W, v0, salt, nl),
@@ -266,11 +277,24 @@ def _small_calls(device):
             *(on(a) for a in arrs), bsalt),
         "greedy_pick": lambda: bal_round.greedy_pick(vals, i4, i4, i4, i8,
                                                      i8),
+        "lp_gain": lambda: lp_gain.lp_gain_ell(
+            on(lab), f32(np.where(lab >= 0, 2, 0)),
+            f32(np.where(lab >= 0, lab + 1, np.inf)),
+            on(g_own), f32(np.ones((8, 1))),
+            f32([[3]]), row_tile=4),
+        "bsr_spmm": lambda: (bsr_spmm.bsr_spmm(
+            on([1, 0, 2, 1]), f32(blocks), f32(np.arange(36).reshape(12, 3)),
+            block_rows=2, nnz_per_row=2),),
+        "embedding_bag": lambda: (embedding_bag.embedding_bag_1row(
+            on([[0, 2], [1, 1], [2, 0]]), f32(np.arange(12).reshape(3, 4))),),
     }
 
 
+MICRO = ["lp_gain", "bsr_spmm", "embedding_bag"]
+
+
 @pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
-                                    "greedy_pick"])
+                                    "greedy_pick"] + MICRO)
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
     before = dict(_build.LAUNCHES)
     out = _small_calls(torch.device("cpu"))[kernel]()
@@ -279,7 +303,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
-                                    "greedy_pick"])
+                                    "greedy_pick"] + MICRO)
 def test_other_devices_raise_instead_of_falling_back(kernel):
     with pytest.raises(ValueError, match="unsupported device"):
         _small_calls(torch.device("meta"))[kernel]()
@@ -292,7 +316,8 @@ def test_build_is_lazy_and_content_hashed():
     assert target.parent == _build.BUILD_DIR
     assert target.name.startswith("lp_move-") and target.suffix == ".so"
     assert _build._libs == {}
-    assert set(_build.SOURCES) == {"lp_move", "seg_merge", "bal_round"}
+    assert set(_build.SOURCES) == {"lp_move", "seg_merge", "bal_round",
+                                   "lp_gain", "bsr_spmm", "embedding_bag"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
 
@@ -310,7 +335,7 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
-                                    "greedy_pick"])
+                                    "greedy_pick"] + MICRO)
 def test_kernel_matches_plain_version_on_gpu(kernel, cuda_device):
     before = _build.LAUNCHES[kernel]
     got = _small_calls(cuda_device)[kernel]()
