@@ -13,7 +13,12 @@ exits non-zero if any one fails:
      the torch/CUDA versions and the card's name and power limit;
   2. ragged kernel cases: every kernel against its plain PyTorch version
      on small edge-case inputs, exact equality (bsr_spmm, whose sums run
-     in another order, within rtol 1e-5 / atol 1e-5);
+     in another order, within rtol 1e-5 / atol 1e-5); lp_move also on
+     chunks that load its phase B (no candidate; every row a candidate to
+     one target, R = 4,500 and 70,001; candidates spread over ~2^21
+     labels; -1 lanes anywhere in a row), each also timed beside its
+     count of candidates; embedding_bag at D=64 with BAG 1, 4 and 17 and
+     B not a multiple of its bags per thread;
   3. the anchor: rgg2d n=4000, k=16, eps=0.03 with the benchmark config
      (C=256, 4 chunks, 2 IP repetitions) must give cut 819, feasible,
      under ``kernel="fused"`` and ``kernel="composed"``;
@@ -22,12 +27,16 @@ exits non-zero if any one fails:
      reference's), feasible, with every kernel launched (launch counts
      zeroed just before the run, read just after it). The port has no
      fused-to-composed fallback: a fused call launches its kernel or
-     raises;
+     raises. Each lp_move call's count of phase-B candidates (by the plain
+     version's rule on its inputs) is printed;
   5. each kernel against its plain version on the largest input the main
      path gave it (captured during phase 4), exact equality, both timed
      with CUDA events; beyond the main path, seg_merge at 2^24 records
      and the balancer at the finest level (a skewed partition, its own
-     launch counts printed apart);
+     launch counts printed apart). lp_move's device launches per call
+     (a torch.profiler window) must be the same at the main path's chunk
+     and at 67 of its rows, at most 12, and a call must not wait for the
+     stream (``set_sync_debug_mode("error")``);
   6. the kernels off the main path, each through its own entry point at
      full size on the default (CUDA) device, with launch counts zeroed
      just before and read just after each: ``lp_gain`` on the 2^20 graph
@@ -39,7 +48,12 @@ exits non-zero if any one fails:
      the inputs its entry point gave it (exact; bsr_spmm within rtol
      1e-5 / atol 1e-5) and timed beside its bound and, for bsr_spmm and
      embedding_bag, the PyTorch library call that computes the same
-     function (a yardstick the port never calls).
+     function (a yardstick the port never calls). embedding_bag's row is
+     the launch path its entry point uses (indices checked on the host),
+     timed over 8 index sets in turn so that the gathered rows do not
+     stay in L2 (the library call alike), with the checked wrapper's
+     time, its device launches per call, its device time L2-cold and
+     L2-warm and the no-stream-wait check printed beside it.
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -48,6 +62,7 @@ port's sources beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import re
 import subprocess
@@ -162,6 +177,21 @@ def ragged_cases(torch, rng, dev):
         cases.append(("lp_move", lp_move.lp_move_chunk,
                       lp_ref.lp_move_chunk_ref,
                       (*args, W, v0, salt, nl), extra))
+    for kind, R, dist in (("none", 5000, False), ("none", 5000, True),
+                          ("one_target", 4500, False),
+                          ("one_target", 4500, True),
+                          ("one_target", 70001, False),
+                          ("spread", 20000, False), ("spread", 20000, True),
+                          ("holes", 3000, False), ("holes", 3000, True)):
+        nlab, nw, ncw, nbud, own, vw, W, nl = lp_move_stress(rng, kind, R,
+                                                             dist)
+        args = [_i32(torch, x, dev) for x in (nlab, nw, ncw, own, vw)]
+        extra = dict(nbud=_i32(torch, nbud, dev)) if dist else {}
+        cases.append(("lp_move", lp_move.lp_move_chunk,
+                      lp_ref.lp_move_chunk_ref,
+                      (*args, W, int(rng.integers(0, 1000)),
+                       int(rng.integers(0, 2**32)), nl), extra,
+                      f"phase B {kind}{' nbud' if dist else ''}"))
     for L, span in ((1, 3), (3, 2), (1000, 40), (5000, 300), (70001, 2000)):
         src = rng.integers(0, span, L)
         dst = rng.integers(0, span, L)
@@ -204,6 +234,41 @@ def ragged_cases(torch, rng, dev):
         cases.append(("greedy_pick", bal_round.greedy_pick,
                       bal_ref.greedy_pick_ref, args, {}))
     return cases + micro_ragged_cases(torch, rng, dev)
+
+
+def lp_move_stress(rng, kind, R, dist):
+    """An ``lp_move`` chunk that loads phase B: ``none`` has no candidate
+    (W far above every cluster), ``one_target`` makes every row a mover
+    to label 0 and so a candidate (one target, R of them), ``spread``
+    puts many candidates on many targets among ~2^21 labels (a 52-bit
+    key), ``holes`` has -1 lanes anywhere in a row, not only a suffix.
+    Returns (nlab, nw, ncw, nbud, own, vw, W, num_labels); ``nbud``
+    (the distributed admission form) only if ``dist``."""
+    D = {"none": 16, "one_target": 4, "spread": 24, "holes": 40}[kind]
+    if kind == "one_target":
+        W, nl = 10, R + 1
+        nlab = np.full((R, D), -1)
+        nlab[:, 0] = 0
+        ncw = np.where(nlab >= 0, 1, 2**31 - 1)
+        nw = np.where(nlab >= 0, 3, 0)
+        own = 1 + np.arange(R)
+        vw = np.full(R, 2)
+    else:
+        W, nl = {"none": (10**6, 40), "spread": (40, 2**21 - 5),
+                 "holes": (30, 50)}[kind]
+        pool = rng.choice(nl, min(nl, max(2, R // 4)), replace=False)
+        nlab = pool[rng.integers(0, pool.size, (R, D))]
+        nlab[rng.random((R, D)) < 0.4] = -1      # holes anywhere in a row
+        nlab[R - R // 8:] = -1                   # fully padded tail rows
+        nw = np.where(nlab >= 0, rng.integers(1, 6, (R, D)), 0)
+        lo, hi = (0, 20) if kind == "none" else (W // 2, W - 2)
+        ncw = np.where(nlab >= 0, rng.integers(lo, hi, (R, D)), 2**31 - 1)
+        own = pool[rng.integers(0, pool.size, R)]
+        vw = rng.integers(1, 4, R)
+    nbud = ncw + vw[:, None] + rng.integers(0, 2, (R, D)) if dist else None
+    if dist:
+        nbud = np.minimum(nbud, 2**31 - 1)
+    return nlab, nw, ncw, nbud, own, vw, W, nl
 
 
 def micro_ragged_cases(torch, rng, dev):
@@ -262,7 +327,9 @@ def micro_ragged_cases(torch, rng, dev):
                       (_i32(torch, col, dev), f32(vals), f32(x)),
                       dict(block_rows=rb, nnz_per_row=nnz)))
     for B, bag, V, D in ((32, 1, 500, 64), (33, 3, 100, 200), (5, 3, 10, 1),
-                         (9, 3, 4, 64), (1, 1, 1, 4)):
+                         (9, 3, 4, 64), (1, 1, 1, 4), (1001, 1, 5000, 64),
+                         (4099, 4, 5000, 64), (333, 17, 2000, 64),
+                         (50, 2, 100, 8), (77, 3, 300, 132)):
         idx = rng.integers(0, V, (B, bag))
         idx[0] = idx[0, 0]                           # repeated indices
         table = rng.standard_normal((V, D))
@@ -314,14 +381,33 @@ def phase_ragged(torch, dev):
     say("== phase 2: ragged kernel cases against the plain versions "
         "(tolerance 0; bsr_spmm rtol 1e-5 / atol 1e-5)")
     rng = np.random.default_rng(20260)
-    for name, fn, plain, args, kw in ragged_cases(torch, rng, dev):
+    for name, fn, plain, args, kw, *what in ragged_cases(torch, rng, dev):
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         want = plain(*args, **kw)
         err, _ = compare(name, got, want)
         shape = tuple(args[0].shape)
-        say(f"  {name} {shape}: {tolerance_text(name)} (max abs err "
-            f"{err})")
+        timed = ""
+        if what:        # lp_move's phase-B chunks: candidates and time
+            ms = cuda_ms(torch, lambda: fn(*args, **kw), 5)
+            timed = (f"; {int(candidate_count(args, kw))} candidates, "
+                     f"kernel {ms:.4f} ms")
+        say(f"  {name} {shape}{''.join(' ' + w for w in what)}: "
+            f"{tolerance_text(name)} (max abs err {err}){timed}")
+
+
+def candidate_count(args, kw):
+    """The phase-B candidates of one ``lp_move`` call (rows that move to a
+    target that would end above W), by the plain version's phase A and
+    candidate rule on the call's inputs: a 0-d device tensor."""
+    from repro_torch.kernels.lp_move import ref
+
+    nlab, nw, ncw, own, vw, W, _, salt, num_labels = args
+    nbud = kw.get("nbud")
+    mv, tgt, light = ref.move_targets_ref(nlab, nw, ncw, own, vw, W, salt,
+                                          nbud)
+    return ref.candidates_ref(mv, tgt, own, vw, light, W,
+                              num_labels)[0].sum()
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +450,9 @@ class Capture:
         self.inputs = {}
         self._undo = []
 
-    def wrap(self, module, attr, name):
+    def wrap(self, module, attr, name, after=None):
+        """Wrap ``module.attr``; ``after(args, kw)``, if given, runs after
+        each call."""
         fn = getattr(module, attr)
 
         def wrapped(*args, **kw):
@@ -374,7 +462,10 @@ class Capture:
                     x, self.torch.Tensor) else x)
                 self.inputs[name] = (size, fn, [cl(a) for a in args],
                                      {k: cl(v) for k, v in kw.items()})
-            return fn(*args, **kw)
+            out = fn(*args, **kw)
+            if after is not None:
+                after(args, kw)
+            return out
 
         setattr(module, attr, wrapped)
         self._undo.append((module, attr, fn))
@@ -384,7 +475,7 @@ class Capture:
             setattr(module, attr, fn)
 
 
-def phase_main_path(torch, api, build):
+def phase_main_path(torch, api, build, candidates):
     say(f"== phase 4: main path rgg2d {FULL_N}, k=16, preset fast, fused")
     spec = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17)
     t0 = time.perf_counter()
@@ -405,6 +496,13 @@ def phase_main_path(torch, api, build):
     for rec in res.trace:
         say("  trace " + json.dumps(rec, sort_keys=True))
     say(f"  launches {json.dumps(launches, sort_keys=True)}")
+    counts = [int(c) for c in candidates]
+    say(f"  lp_move phase-B candidates per call ({len(counts)} calls, the "
+        f"plain version's rule on each call's inputs): max {max(counts)}, "
+        f"more than one 1024-key tile in {sum(c > 1024 for c in counts)}; "
+        f"{counts}")
+    check(len(counts) == launches["lp_move"],
+          "main path: a candidate count for every lp_move call")
     check(res.feasible and cut == FULL_CUT,
           f"main path: cut {cut}, feasible {res.feasible}; expected "
           f"{FULL_CUT}, feasible")
@@ -503,6 +601,147 @@ def bound(kind: str, args, kw, out):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def graph_launches(torch, call):
+    """(launches, {kind: count}) of one call, counted exactly: the nodes
+    of a CUDA graph captured around it (kernels, memsets, copies). The
+    count needs no profiler, and a call that waited for the stream could
+    not be captured."""
+    import ctypes
+
+    call()                          # builds, allocations, lazy set-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(1, n.value))()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = {}
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        kind = {0: "kernel", 1: "memcpy", 2: "memset"}.get(t.value,
+                                                          f"type {t.value}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    del graph
+    torch.cuda.synchronize()
+    return n.value, kinds
+
+
+def device_ms(torch, calls, rounds):
+    """Device milliseconds per call of ``calls``, taken in turn ``rounds``
+    times: CUDA events around them, queued behind a sleep kernel that
+    outlasts the host's launching, so that no host time is counted."""
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(50_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for call in calls:
+            call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    check(host_ms < ev[0].elapsed_time(ev[1]),
+          f"the host took {host_ms:.1f} ms to launch, longer than the "
+          "sleep that hides it")
+    return ev[1].elapsed_time(ev[2]) / (rounds * len(calls))
+
+
+def profiled(torch, call):
+    """{kernel or memset name: device ms} of one call, as a torch.profiler
+    window around it records them (after a warm-up call), or None if the
+    window recorded no device activity. On the H100 machine (torch 2.11,
+    CUDA 12.8) windows lose every device record now and then: the same
+    sequence of calls recorded in one process and not in the next, and
+    no window after torch.sparse's Triton BSR product (phase 6's library
+    call) has recorded in any run, whatever TEARDOWN_CUPTI says. So the
+    launch counts come from graph_launches and the device times from
+    device_ms; the profiler adds only the per-kernel breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.elapsed_us() / 1e3)
+    return by_name or None
+
+
+def say_launches(torch, name, call, where):
+    """Print one call's device launches (graph nodes by kind) and its
+    profiler breakdown; fail if the profiler, when it recorded, saw
+    another count. Returns the count."""
+    n, kinds = graph_launches(torch, call)
+    say(f"  {name}: {n} device launches per call {where} "
+        f"({', '.join(f'{c} {k}' for k, c in sorted(kinds.items()))})")
+    check(n > 0, f"{name}: the captured graph holds no device launch")
+    by_name = profiled(torch, call)
+    if by_name is None:
+        say("    the profiler window recorded no device activity")
+        return n
+    seen = sum(len(v) for v in by_name.values())
+    check(seen == n, f"{name}: the profiler saw {seen} device launches, "
+          f"the captured graph {n}")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -sum(kv[1])):
+        say(f"    {len(ms)} x {kname[:72]}: {sum(ms):.4f} ms on the device")
+    return n
+
+
+def no_stream_wait(torch, name, call):
+    """Fail if ``call`` waits for the stream: it runs once under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    except RuntimeError as exc:
+        raise SmokeFailure(f"{name}: the call waited for the stream: "
+                           f"{exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(f"  {name}: no stream wait under set_sync_debug_mode('error')")
+
+
+def lp_move_launches(torch, fn, args, kw):
+    """Device launches of one lp_move call at the main path's chunk and at
+    its first 67 rows (same num_labels): fail unless they are equal and
+    at most 12, or if a call waits for the stream. Prints the call's
+    device time."""
+    rows = 67
+    small = [a[:rows] if hasattr(a, "shape") else a for a in args]
+    skw = {k: v[:rows] for k, v in kw.items() if v is not None}
+    big = lambda: fn(*args, **kw)           # noqa: E731
+    little = lambda: fn(*small, **skw)      # noqa: E731
+    big_n = say_launches(torch, "lp_move", big,
+                         f"at {args[0].shape[0]} rows")
+    small_n = say_launches(torch, "lp_move", little,
+                           f"at {rows} rows (num_labels {args[8]})")
+    check(big_n == small_n <= 12,
+          f"lp_move: {big_n} and {small_n} device launches per call; "
+          "expected the same number, at most 12")
+    say(f"  lp_move: device time per call {device_ms(torch, [big], 20):.4f} "
+        "ms (CUDA events behind a sleep kernel)")
+    no_stream_wait(torch, "lp_move", big)
+    no_stream_wait(torch, "lp_move", little)
+
+
 def synthetic_seg_merge(torch, g, dev):
     """2^24 padded records: the fine graph's arcs merged in vertex pairs
     (``v // 2``), so runs of duplicates and self loops both occur."""
@@ -548,15 +787,26 @@ def phase_kernels(torch, build, capture, launches, g, assignment, dev):
         reps = 20 if name != "greedy_pick" else 200
         row = held_and_timed(torch, name, fn, plain[name], args, kw, reps,
                              launches[name])
+        if name == "lp_move":
+            lp_move_launches(torch, fn, args, kw)
         rows.setdefault(name, row)    # beyond the main path: printed only
     return [rows[name] for name in MAIN_PATH]
 
 
+def in_turn(fn, arg_sets, kw):
+    """One call of ``fn`` a call, on each of ``arg_sets`` in turn."""
+    calls = itertools.cycle([functools.partial(fn, *a, **kw)
+                             for a in arg_sets])
+    return lambda: next(calls)()
+
+
 def held_and_timed(torch, name, fn, plain, args, kw, reps, launches,
-                   library=None):
+                   library=None, rotate=None):
     """Hold the kernel to its plain version on these inputs, time both
-    (and the library call, if given) with CUDA events, and return the
-    kernel's record row."""
+    (and the library call ``library(*args)``, if given) with CUDA events,
+    and return the kernel's record row. ``rotate``: argument sets (the
+    first ``args``) that the timed calls take in turn, for kernel, plain
+    version and library alike."""
     got = fn(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
@@ -564,12 +814,13 @@ def held_and_timed(torch, name, fn, plain, args, kw, reps, launches,
     err, rel = compare(name, got, want)
     del want
     shape = [tuple(t.shape) for t in args if hasattr(t, "shape")]
-    ms = cuda_ms(torch, lambda: fn(*args, **kw), reps)
-    plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), max(2, reps // 10))
+    sets = rotate or [args]
+    ms = cuda_ms(torch, in_turn(fn, sets, kw), reps)
+    plain_ms = cuda_ms(torch, in_turn(plain, sets, kw), max(2, reps // 10))
     b_ms, b_by = bound(name, args, kw, got)
     lib_ms, lib_err = None, None
     if library is not None:
-        lib_ms, lib_err = library_ms(torch, library, got, reps)
+        lib_ms, lib_err = library_ms(torch, library, sets, got, reps)
     lib = ("n/a" if library is None else
            f"{lib_ms:.4f} ms" if lib_err is None else lib_err)
     say(f"  {name} {' '.join(map(str, shape))}: {tolerance_text(name)} "
@@ -587,20 +838,20 @@ def held_and_timed(torch, name, fn, plain, args, kw, reps, launches,
     return row
 
 
-def library_ms(torch, make_call, got, reps):
+def library_ms(torch, library, sets, got, reps):
     """(ms, None) of one PyTorch library call computing the kernel's
-    function, or (None, its error) if the installed torch rejects it. The
-    call is only a yardstick; its largest difference from the kernel's
-    output is printed."""
+    function, ``library(*args)`` on each of ``sets`` in turn, or (None,
+    its error) if the installed torch rejects it. The call is only a
+    yardstick; its largest difference from the kernel's output (on the
+    first set) is printed."""
     try:
-        call = make_call()
-        out = call()
+        out = library(*sets[0])
         torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
         return None, f"{type(exc).__name__}: {exc}"
     diff = float((out - got).abs().max())
     say(f"  library call: max abs difference from the kernel {diff}")
-    return cuda_ms(torch, call, reps), None
+    return cuda_ms(torch, in_turn(library, sets, {}), reps), None
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +861,7 @@ def library_ms(torch, make_call, got, reps):
 GRID_SIDE = 1024           # spmm: grid2d 1024 x 1024, the mesh family
 SPMM_F = 128               # d_hidden of the repo's dimenet config
 EB_V, EB_D, EB_B = 1_000_000, 64, 65_536   # one dlrm-rm2 table, train batch
+EB_SETS = 8                # index sets the timed embedding_bag calls rotate
 DATA_SEED = 12
 
 
@@ -646,12 +898,87 @@ def edge_scan_gain(g, labels, cw, budget, k):
     return gain, target.astype(np.int32), own.astype(np.float32)
 
 
+def embedding_bag_row(torch, build, eb, eb_ops, eb_ref, dev):
+    """embedding_bag through its entry point on one dlrm-rm2 table at the
+    training batch, BAG 1 (the record's row) and 4 (printed). The timed
+    calls take EB_SETS index sets in turn, whose gathered rows together
+    (134 MB at BAG=1) exceed the H100's 50 MB L2, so that each call reads
+    its rows from HBM as a training step does: the kernel, its plain
+    version and F.embedding_bag alike. Device time is printed both so
+    (cold) and for one set called again (warm, L2-resident)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(DATA_SEED)
+    table = rng.standard_normal((EB_V, EB_D), dtype=np.float32)
+    bags = {bag: rng.integers(0, EB_V, (EB_SETS, EB_B, bag)).astype(np.int32)
+            for bag in (1, 4)}
+    say(f"  embedding_bag: V={EB_V} D={EB_D} B={EB_B}, BAG 1 and 4, "
+        f"{EB_SETS} index sets each ({time.perf_counter() - t0:.2f} s, "
+        "set-up)")
+    caps = {bag: Capture(torch) for bag in bags}
+
+    def both_bags():
+        outs = {}
+        for bag, idx in bags.items():
+            caps[bag].wrap(eb_ops, "_gather", "embedding_bag")
+            try:
+                outs[bag] = eb_ops.embedding_bag(idx[0], table)
+            finally:
+                caps[bag].restore()
+        return outs
+
+    outs, launches = drive(torch, build, "embedding_bag", both_bags)
+    for bag, idx in bags.items():
+        want = np.zeros((EB_B, EB_D), dtype=np.float32)
+        for j in range(bag):
+            want += table[idx[0][:, j]]
+        check(np.array_equal(outs[bag], want),
+              f"embedding_bag BAG={bag}: differs from the sequential sum")
+        say(f"  embedding_bag BAG={bag} = sequential numpy sum (exact)")
+    eb_rows = {}
+    for bag in bags:
+        # the entry point's launch path: indices checked on the host
+        _, fn, args, kw = caps[bag].inputs["embedding_bag"]
+        idx, tab = args
+        sets = [(idx, tab)] + [(torch.from_numpy(x).to(dev), tab)
+                               for x in bags[bag][1:]]
+        gathered = EB_SETS * EB_B * bag * EB_D * 4 / 1e6
+        say(f"  embedding_bag BAG={bag}: timed over the {EB_SETS} sets in "
+            f"turn, {gathered:.1f} MB of gathered rows")
+        eb_rows[bag] = held_and_timed(
+            torch, "embedding_bag", fn, eb_ref.embedding_bag_ref, args, kw,
+            200, launches, rotate=sets,
+            library=lambda i, t: torch.nn.functional.embedding_bag(
+                i, t, mode="sum"))
+        checked_ms = cuda_ms(torch, in_turn(eb.embedding_bag_1row, sets, {}),
+                             200)
+        check_ms = cuda_ms(torch, in_turn(
+            build.check_index_range, [("idx", i, EB_V) for i, _ in sets],
+            {}), 200)
+        say(f"  embedding_bag BAG={bag}: the checked wrapper "
+            f"(embedding_bag_1row on device tensors) {checked_ms:.4f} ms, "
+            f"of which its index range check {check_ms:.4f} ms")
+        say_launches(torch, f"embedding_bag BAG={bag}",
+                     lambda: fn(idx, tab), "on the launch path")
+        cold = device_ms(torch, [functools.partial(fn, *a) for a in sets],
+                         5)
+        warm = device_ms(torch, [lambda: fn(idx, tab)], 40)
+        say(f"  embedding_bag BAG={bag}: device time per call (CUDA events "
+            f"behind a sleep kernel) L2-cold {cold:.4f} ms (the sets in "
+            f"turn), L2-warm {warm:.4f} ms (one set again); bound "
+            f"{eb_rows[bag]['bound_ms']:.4f} ms")
+        eb_rows[bag]["device_ms_l2_cold"] = cold
+        no_stream_wait(torch, f"embedding_bag BAG={bag}",
+                       lambda: fn(idx, tab))
+    return eb_rows[1]       # the config's bag size; BAG=4 printed
+
+
 def phase_off_main(torch, build, g, assignment, dev):
     say("== phase 6: kernels off the main path, through their entry points "
         "on the default device")
     from repro_torch.core import metrics
     from repro_torch.graphs import generators
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops, ref as bsr_ref
+    from repro_torch.kernels.embedding_bag import embedding_bag as eb
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     from repro_torch.kernels.embedding_bag import ref as eb_ref
     from repro_torch.kernels.lp_gain import ops as gain_ops
@@ -729,64 +1056,22 @@ def phase_off_main(torch, build, g, assignment, dev):
         f"({2.0 * int(real.sum()) * bs * bs * xp.shape[1] / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms "
         "at the f32 rate)")
 
-    def bsr_library():
+    @functools.lru_cache(maxsize=1)
+    def bsr_matrix():       # built at the first library call
         crow = torch.zeros(rb + 1, dtype=torch.int64, device=dev)
         crow[1:] = real.view(rb, nnz).sum(1).cumsum(0)
-        a = torch.sparse_bsr_tensor(crow, col[real].long(), vals[real],
-                                    size=(rb * bs, xp.shape[0]))
-        return lambda: a @ xp
+        return torch.sparse_bsr_tensor(crow, col[real].long(), vals[real],
+                                       size=(rb * bs, xp.shape[0]))
 
     rows.append(held_and_timed(torch, "bsr_spmm", fn, bsr_ref.bsr_spmm_ref,
-                               args, kw, 20, launches, library=bsr_library))
+                               args, kw, 20, launches,
+                               library=lambda *_: bsr_matrix() @ xp))
+    bsr_matrix.cache_clear()
     del cap, args, col, vals, xp, real, y
     torch.cuda.empty_cache()
-
-    # embedding_bag: one dlrm-rm2 table at the training batch
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(DATA_SEED)
-    table = rng.standard_normal((EB_V, EB_D), dtype=np.float32)
-    bags = {bag: rng.integers(0, EB_V, (EB_B, bag)).astype(np.int32)
-            for bag in (1, 4)}
-    say(f"  embedding_bag: V={EB_V} D={EB_D} B={EB_B}, BAG 1 and 4 "
-        f"({time.perf_counter() - t0:.2f} s, set-up)")
-    caps = {bag: Capture(torch) for bag in bags}
-
-    def both_bags():
-        outs = {}
-        for bag, idx in bags.items():
-            caps[bag].wrap(eb_ops, "embedding_bag_1row", "embedding_bag")
-            try:
-                outs[bag] = eb_ops.embedding_bag(idx, table)
-            finally:
-                caps[bag].restore()
-        return outs
-
-    outs, launches = drive(torch, build, "embedding_bag", both_bags)
-    for bag, idx in bags.items():
-        want = np.zeros((EB_B, EB_D), dtype=np.float32)
-        for j in range(bag):
-            want += table[idx[:, j]]
-        check(np.array_equal(outs[bag], want),
-              f"embedding_bag BAG={bag}: differs from the sequential sum")
-        say(f"  embedding_bag BAG={bag} = sequential numpy sum (exact)")
-    eb_rows = {}
-    for bag in bags:
-        _, fn, args, kw = caps[bag].inputs["embedding_bag"]
-        idx, tab = args
-        check_ms = cuda_ms(torch, lambda: build.check_index_range(
-            "idx", idx, EB_V), 200)
-        say(f"  embedding_bag BAG={bag}: of the wrapper's time, its index "
-            f"range check {check_ms:.4f} ms")
-
-        def eb_library(idx=idx, tab=tab):
-            return lambda: torch.nn.functional.embedding_bag(idx, tab,
-                                                             mode="sum")
-
-        eb_rows[bag] = held_and_timed(torch, "embedding_bag", fn,
-                                      eb_ref.embedding_bag_ref, args, kw,
-                                      200, launches, library=eb_library)
-    rows.append(eb_rows[1])       # the config's bag size; BAG=4 printed
+    rows.append(embedding_bag_row(torch, build, eb, eb_ops, eb_ref, dev))
     return rows
+
 
 
 def main() -> int:
@@ -821,13 +1106,16 @@ def main() -> int:
     phase_ragged(torch, dev)
     phase_anchor(torch, api, deep_mgp)
     capture = Capture(torch)
-    capture.wrap(lp_ops, "lp_move_chunk", "lp_move")
+    candidates = []
+    capture.wrap(lp_ops, "lp_move_chunk", "lp_move",
+                 after=lambda a, kw: candidates.append(
+                     candidate_count(a, kw)))
     capture.wrap(seg_ops, "seg_merge", "seg_merge")
     capture.wrap(bal_ops, "bal_scores", "bal_scores")
     capture.wrap(bal_ops, "greedy_pick", "greedy_pick")
     try:
         g, launches, assignment = phase_main_path(
-            torch, api, build)
+            torch, api, build, candidates)
     finally:
         capture.restore()
     kernels = phase_kernels(torch, build, capture, launches, g, assignment,

@@ -1,6 +1,6 @@
 // Shared device code of the port's kernels: the uint32 mix hash, int32
-// arithmetic that wraps like XLA's, a bitonic (key, value) sort for
-// lengths beyond one block, and segmented Hillis-Steele scans.
+// arithmetic that wraps like XLA's, and seg_merge's bitonic (key, value)
+// sort for lengths beyond one block and segmented Hillis-Steele scans.
 //
 // Every source includes this header and builds into its own shared
 // library, so everything here has internal linkage (static / anonymous

@@ -8,25 +8,61 @@
 // cluster-weight update and the hash-ordered revert of over-budget movers,
 // ranked by (h32(v0 + row, salt ^ 0x9E3779B9), row).
 //
-// What bounds it on the H100: memory. Phase A reads the (R, D) slabs once
-// (12 B per lane, 16 B with nbud) and does O(deg^2) integer compares per
-// row, far below the card's integer rate at these degrees. Phase B touches
-// O(R) words plus a sort of R (key, row) pairs.
+// What bounds it on the H100: the bytes are few (phase A reads the (R, D)
+// slabs once: the label slab whole, a warp reading a row's 32 lanes at
+// once, and the weight slabs only where a lane is valid; phase B touches
+// O(R) words plus the candidates of the revert, rows with pmove && newcw >
+// W), so at the partitioner's sizes the limit is phase A's instruction
+// issue, some 150 warp instructions a row whatever its degree, and the
+// fixed cost of phase B's dependent launches.
 //
-// Design. Phase A is one warp per row: each lane owns lanes j = lane,
-// lane + 32, ... of the row; a row tile of 32 lanes is broadcast by warp
-// shuffles, so conn[j] costs deg^2/32 shuffles per lane and nothing leaves
-// registers; padded lanes (label -1) are skipped. The TPU kernel's R x R
-// pairwise masks (6.9e10 pairs per chunk at level 0 of a 2^20-vertex graph)
-// are replaced by the composed order of core/lp.py: exact int32 atomicAdd
-// into label-indexed tables for d_in / d_out / moved-in weight, a bitonic
-// sort of the candidates by (target, rank, row), and a segmented scan for
-// the cumulative moved-in weight.
+// Design. Phase A is one warp per row, four rows per warp whose first 32
+// lanes are loaded before any is worked on: a 32-lane tile of (label,
+// weight) is broadcast by warp shuffles, walking only the set bits of the
+// tile's valid-lane ballot (valid lanes need not be a prefix); the
+// four-way tie chain is four single-instruction warp reductions
+// (__reduce_max/min_sync), one key after the other; movers add their
+// weight to the label-indexed d_in / d_out tables with int32 atomics. The
+// shuffle walk costs two shuffles per valid lane and runs faster on the
+// H100 than one __match_any_sync plus a masked __reduce_add_sync. The TPU
+// kernel's R x R pairwise masks become the composed order of core/lp.py:
+//   1. candidates: each 1024-row CTA flags its candidates, a CTA scan plus
+//      a decoupled look-back over the CTAs compacts them, in row order,
+//      into a (key, row) list, key = (target << 31) | rank; their count
+//      stays on the device, and the digit histograms of every radix pass
+//      are taken here;
+//   2. a stable LSD radix sort of that list, 8-bit digits, as many passes
+//      as the key has bytes (31 + bit_length(num_labels - 1) bits: at most
+//      8); a pass ranks a 1024-key tile with warp match masks and places
+//      it after the keys of smaller digits and the equal digits of earlier
+//      tiles. Since the compaction keeps row order and the sort is stable,
+//      equal (target, rank) keys stay in row order, the order of the plain
+//      version and of the JAX composed path;
+//   3. a segmented scan of vw by target over the sorted list, carried from
+//      tile to tile, and the revert.
+// Steps 2 and 3 are one launch of one CTA that walks the list tile after
+// tile: there is no cut-over and no cooperative grid, because the
+// candidates are few. The 2^20 main path's 120 calls have none at all
+// (chip_smoke.py phase 4 prints each call's count), so the CTA returns at
+// once. A chunk that has them pays 2-4 us on an H100 per 1024 of them
+// and per pass (chip_smoke.py phase 2: 70,001 candidates, 6 passes, 1.49
+// ms a call); spreading the passes over many CTAs would cut that, should
+// such chunks turn up. Every kernel reads the count from the
+// device, so a call is 4 launches (one of them the memset that clears the
+// tables), whatever R, num_labels and the candidate count.
 #include "common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;        // phase A: warps per CTA
+constexpr int ROWS = 4;         // phase A: rows per warp
+constexpr int TILE = 1024;      // phase B: rows or candidates per CTA
+constexpr int RADIX = 256;      // 8-bit digits
+constexpr int MAX_PASSES = 8;   // keys of at most 31 + 31 bits
+
+// int counters at the head of the zeroed scratch: the candidate count and
+// the candidates kernel's tile ticket
+enum { C_COUNT = 0, C_TICKET = 1, N_COUNTERS = 2 };
 
 // Lexicographic "better" of the argmax tie chain: higher score, then
 // lighter cluster, then smaller hash, then smaller label.
@@ -38,167 +74,447 @@ __device__ __forceinline__ bool better(int s, int c, int h, int l, int bs,
   return l < bl;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-lp_move_rows(const int* __restrict__ nlab,
-                             const int* __restrict__ nw,
-                             const int* __restrict__ ncw,
-                             const int* __restrict__ nbud,
-                             const int* __restrict__ own,
-                             const int* __restrict__ vw, int R, int D, int W,
-                             uint32_t salt, int* __restrict__ tgt,
-                             int* __restrict__ pmove,
-                             int* __restrict__ light) {
+__device__ __forceinline__ void check_label(int x, int num_labels) {
+  if (x < 0 || x >= num_labels) __trap();
+}
+
+// One row of phase A for one warp. (l0, w0, c0, b0) are this lane's
+// label, weight, cluster weight and budget in the row's first 32 lanes,
+// loaded by the caller; wider rows load their further tiles here.
+__device__ __forceinline__ void move_row(
+    const int* __restrict__ nlab, const int* __restrict__ nw,
+    const int* __restrict__ ncw, const int* __restrict__ nbud, int r, int D,
+    int W, uint32_t salt, int num_labels, int l0, int w0, int c0, int b0,
+    int o, int v, int* __restrict__ tgt, int* __restrict__ pmove,
+    int* __restrict__ light, int* __restrict__ din, int* __restrict__ dout) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (r >= R) return;  // whole warp leaves together
   const size_t row = (size_t)r * D;
-  const int o = own[r];
-  const int v = vw[r];
   int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX;
   int own_conn = 0;
+  bool own_seen = false;
   for (int j0 = 0; j0 < D; j0 += 32) {
-    const int j = j0 + lane;
-    const int lj = j < D ? nlab[row + j] : -1;
-    if (__ballot_sync(FULL_MASK, lj >= 0) == 0) continue;
+    int lj = l0, wj = w0, cj = c0, bj = b0;
+    if (j0 > 0) {
+      const int j = j0 + lane;
+      lj = j < D ? nlab[row + j] : -1;
+      wj = lj >= 0 ? nw[row + j] : 0;
+      cj = lj >= 0 ? ncw[row + j] : 0;
+      bj = lj >= 0 && nbud ? nbud[row + j] : 0;
+    }
+    const unsigned jmask = __ballot_sync(FULL_MASK, lj >= 0);
+    if (jmask == 0) continue;
     int conn = 0;
     for (int i0 = 0; i0 < D; i0 += 32) {
-      const int i = i0 + lane;
-      const int li = i < D ? nlab[row + i] : -1;
-      const int wi = i < D ? nw[row + i] : 0;
-      if (__ballot_sync(FULL_MASK, li >= 0) == 0) continue;
-#pragma unroll 8
-      for (int s = 0; s < 32; ++s) {
+      int li = lj, wi = wj;
+      unsigned imask = jmask;
+      if (i0 != j0) {
+        const int i = i0 + lane;
+        li = i0 == 0 ? l0 : (i < D ? nlab[row + i] : -1);
+        wi = i0 == 0 ? w0 : (li >= 0 ? nw[row + i] : 0);
+        imask = __ballot_sync(FULL_MASK, li >= 0);
+      }
+      while (imask) {  // warp-uniform: only the valid source lanes
+        const int s = __ffs(imask) - 1;
+        imask &= imask - 1;
         const int ls = __shfl_sync(FULL_MASK, li, s);
         const int ws = __shfl_sync(FULL_MASK, wi, s);
         if (ls == lj) conn = wadd(conn, ws);
       }
     }
     if (lj >= 0) {
-      const int cj = ncw[row + j];
-      const int wj = nw[row + j];
       const bool stay = lj == o;
-      const bool fits = nbud ? (cj <= wsub(nbud[row + j], v))
-                             : (wadd(cj, v) <= W);
+      const bool fits = nbud ? (cj <= wsub(bj, v)) : (wadd(cj, v) <= W);
       const int score = (fits || stay) ? conn : -1;
       const int hj = h32(lj, salt);
       if (better(score, cj, hj, lj, bs, bc, bh, bl)) {
         bs = score; bc = cj; bh = hj; bl = lj;
       }
-      if (stay) own_conn = wadd(own_conn, wj);
+      if (stay) {  // conn of a lane of label o sums all of o's lanes
+        own_conn = conn;
+        own_seen = true;
+      }
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const int s = __shfl_down_sync(FULL_MASK, bs, off);
-    const int c = __shfl_down_sync(FULL_MASK, bc, off);
-    const int h = __shfl_down_sync(FULL_MASK, bh, off);
-    const int l = __shfl_down_sync(FULL_MASK, bl, off);
-    if (better(s, c, h, l, bs, bc, bh, bl)) {
-      bs = s; bc = c; bh = h; bl = l;
-    }
-    own_conn = wadd(own_conn, __shfl_down_sync(FULL_MASK, own_conn, off));
-  }
+  // the tie chain over the warp, one key at a time
+  const int s_best = __reduce_max_sync(FULL_MASK, bs);
+  bool is_best = bs == s_best;
+  const int c_best = __reduce_min_sync(FULL_MASK, is_best ? bc : I32_MAX);
+  is_best = is_best && bc == c_best;
+  const int h_best = __reduce_min_sync(FULL_MASK, is_best ? bh : I32_MAX);
+  is_best = is_best && bh == h_best;
+  const int l_best = __reduce_min_sync(FULL_MASK, is_best ? bl : I32_MAX);
+  const unsigned seen = __ballot_sync(FULL_MASK, own_seen);
+  own_conn = seen ? __shfl_sync(FULL_MASK, own_conn, __ffs(seen) - 1) : 0;
   if (lane == 0) {
-    const bool mv = bs > own_conn && bl != o && bl < I32_MAX && bs > 0;
-    tgt[r] = mv ? bl : o;
+    const bool mv = s_best > own_conn && l_best != o && l_best < I32_MAX &&
+                    s_best > 0;
+    tgt[r] = mv ? l_best : o;
     pmove[r] = mv ? 1 : 0;
-    light[r] = bc;
+    light[r] = c_best;
+    if (mv) {
+      check_label(l_best, num_labels);
+      check_label(o, num_labels);
+      atomicAdd(&din[l_best], v);
+      atomicAdd(&dout[o], v);
+    }
   }
 }
 
-__device__ __forceinline__ void check_label(int x, int num_labels) {
-  if (x < 0 || x >= num_labels) __trap();
+// Phase A: one warp per row, ROWS rows per warp, whose first 32 lanes are
+// all loaded before the first row is worked on.
+__global__ void __launch_bounds__(WARPS * 32)
+lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
+             const int* __restrict__ ncw, const int* __restrict__ nbud,
+             const int* __restrict__ own, const int* __restrict__ vw, int R,
+             int D, int W, uint32_t salt, int num_labels,
+             int* __restrict__ tgt, int* __restrict__ pmove,
+             int* __restrict__ light, int* __restrict__ din,
+             int* __restrict__ dout) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * ROWS;
+  if (r0 >= R) return;  // whole warp leaves together
+  int l[ROWS], w[ROWS], c[ROWS], b[ROWS], o[ROWS], v[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const bool in = r0 + k < R;
+    l[k] = in && lane < D ? nlab[(size_t)(r0 + k) * D + lane] : -1;
+    o[k] = in ? own[r0 + k] : 0;
+    v[k] = in ? vw[r0 + k] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const size_t at = (size_t)(r0 + k) * D + lane;
+    w[k] = l[k] >= 0 ? nw[at] : 0;
+    c[k] = l[k] >= 0 ? ncw[at] : 0;
+    b[k] = l[k] >= 0 && nbud ? nbud[at] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k)
+    if (r0 + k < R)
+      move_row(nlab, nw, ncw, nbud, r0 + k, D, W, salt, num_labels, l[k],
+               w[k], c[k], b[k], o[k], v[k], tgt, pmove, light, din, dout);
 }
 
-__global__ void lp_move_tally(const int* tgt, const int* pmove,
-                              const int* own, const int* vw, int R,
-                              int num_labels, int* din, int* dout) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R || !pmove[r]) return;
-  check_label(tgt[r], num_labels);
-  check_label(own[r], num_labels);
-  atomicAdd(&din[tgt[r]], vw[r]);
-  atomicAdd(&dout[own[r]], vw[r]);
+// ---- CTA-wide building blocks (blockDim.x == TILE) ----------------------
+
+// Segmented inclusive scan of (f, v) over the CTA, f marking a segment's
+// head: on return v is the sum from the last head at or before this thread
+// and f whether there was one. sf / sv (32 each) end holding the warps'
+// inclusive results, so sf[31] / sv[31] is the CTA's aggregate.
+__device__ void cta_seg_scan(bool& f, int& v, int* sf, int* sv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int pv = __shfl_up_sync(FULL_MASK, v, off);
+    const bool pf = __shfl_up_sync(FULL_MASK, (int)f, off);
+    if (lane >= off) {
+      if (!f) v = wadd(v, pv);
+      f = f || pf;
+    }
+  }
+  if (lane == 31) { sf[warp] = f; sv[warp] = v; }
+  __syncthreads();
+  if (warp == 0) {
+    bool wf = sf[lane];
+    int wv = sv[lane];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int pv = __shfl_up_sync(FULL_MASK, wv, off);
+      const bool pf = __shfl_up_sync(FULL_MASK, (int)wf, off);
+      if (lane >= off) {
+        if (!wf) wv = wadd(wv, pv);
+        wf = wf || pf;
+      }
+    }
+    sf[lane] = wf; sv[lane] = wv;
+  }
+  __syncthreads();
+  if (warp > 0) {
+    if (!f) v = wadd(v, sv[warp - 1]);
+    f = f || sf[warp - 1];
+  }
 }
 
-__global__ void lp_move_candidates(const int* tgt, const int* pmove,
-                                   const int* light, const int* vw,
-                                   const int* din, const int* dout, int R,
-                                   int Rp, int W, int v0, uint32_t salt2,
-                                   int* newcw, int* movedin, int* moved,
-                                   uint64_t* key, int* val) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= Rp) return;
-  uint64_t k = ~0ull;
+// Exclusive prefix sum of x over threads 0..255 (other threads get junk).
+__device__ int excl_scan_256(int x, int* s_w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int v = x;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int p = __shfl_up_sync(FULL_MASK, v, off);
+    if (lane >= off) v += p;
+  }
+  if (lane == 31 && warp < RADIX / 32) s_w[warp] = v;
+  __syncthreads();
+  int add = 0;
+  if (warp < RADIX / 32)
+    for (int w = 0; w < warp; ++w) add += s_w[w];
+  __syncthreads();
+  return add + v - x;
+}
+
+// Stable rank of this thread's digit d (-1: no key) among the CTA's keys
+// of that digit, in thread order; leaves the CTA's count of each digit in
+// cnt. wh holds 32 x RADIX per-warp counts (each at most 32, their
+// prefixes at most TILE: 16 bits suffice).
+__device__ int rank_in_tile(int d, unsigned short* wh, int* cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 32 * RADIX; i += TILE) wh[i] = 0;
+  __syncthreads();
+  const unsigned peers = __match_any_sync(FULL_MASK, d);
+  const int wr = __popc(peers & ((1u << lane) - 1u));
+  if (d >= 0 && wr == 0) wh[warp * RADIX + d] = (unsigned short)__popc(peers);
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x < RADIX) {
+    for (int w = 0; w < 32; ++w) {
+      const int c = wh[w * RADIX + threadIdx.x];
+      wh[w * RADIX + threadIdx.x] = (unsigned short)total;
+      total += c;
+    }
+    cnt[threadIdx.x] = total;
+  }
+  __syncthreads();
+  return d >= 0 ? wh[warp * RADIX + d] + wr : 0;
+}
+
+// ---- decoupled look-back over the candidates kernel's tiles. A status
+// word is (tag << 32) | count: tag 0 (the zeroed scratch) not published
+// yet, 1 the tile's own count, 2 its inclusive prefix. -------------------
+
+__device__ __forceinline__ uint64_t vload(const uint64_t* p) {
+  return *(const volatile uint64_t*)p;
+}
+__device__ __forceinline__ void vstore(uint64_t* p, uint64_t x) {
+  *(volatile uint64_t*)p = x;
+  __threadfence();
+}
+__device__ __forceinline__ uint64_t status(unsigned tag, int payload) {
+  return ((uint64_t)tag << 32) | (uint32_t)payload;
+}
+
+// Exclusive prefix of the tiles' counts before this one; one thread a CTA.
+__device__ int lookback_sum(uint64_t* st, int tile, int agg) {
+  if (tile == 0) {
+    vstore(st, status(2u, agg));
+    return 0;
+  }
+  vstore(st + tile, status(1u, agg));
+  int excl = 0;
+  for (int q = tile - 1;; --q) {
+    uint64_t w;
+    do { w = vload(st + q); } while ((w >> 32) == 0);
+    excl += (int)(uint32_t)w;
+    if ((w >> 32) == 2u) break;
+  }
+  vstore(st + tile, status(2u, excl + agg));
+  return excl;
+}
+
+// ---- phase B -----------------------------------------------------------
+
+__device__ __forceinline__ int digit(uint64_t k, int pass) {
+  return (int)((k >> (8 * pass)) & (RADIX - 1));
+}
+
+// newcw, moved, movedin per row; the candidates compacted in row order
+// into (ckey, crow), their count into ctr[C_COUNT], every pass's digit
+// histogram into hist.
+__global__ void __launch_bounds__(TILE)
+lp_move_candidates(const int* tgt, const int* pmove, const int* light,
+                   const int* vw, const int* din, const int* dout, int R,
+                   int W, int v0, uint32_t salt2, int passes, int* newcw,
+                   int* movedin, int* moved, uint64_t* ckey, int* crow,
+                   int* ctr, int* hist, uint64_t* cstat) {
+  __shared__ int s_tile, s_excl;
+  __shared__ int sf[32], sv[32];
+  __shared__ int s_hist[MAX_PASSES * RADIX];
+  if (threadIdx.x == 0) s_tile = atomicAdd(&ctr[C_TICKET], 1);
+  for (int i = threadIdx.x; i < passes * RADIX; i += TILE) s_hist[i] = 0;
+  __syncthreads();
+  const int tile = s_tile;
+  const int r = tile * TILE + threadIdx.x;
+  bool cand = false;
+  uint64_t k = 0;
   if (r < R) {
-    const int t = tgt[r];
-    bool cand = false;
-    if (pmove[r]) {
-      const int nc = wsub(wadd(light[r], din[t]), dout[t]);
+    const int pm = pmove[r], t = tgt[r], lt = light[r], v = vw[r];
+    moved[r] = pm;
+    if (pm) {
+      const int nc = wsub(wadd(lt, din[t]), dout[t]);
       newcw[r] = nc;
-      cand = nc > W;
-    }
-    moved[r] = pmove[r];
-    if (cand) {
-      atomicAdd(&movedin[t], vw[r]);
-      k = ((uint64_t)(uint32_t)t << 31) | (uint64_t)h32(wadd(v0, r), salt2);
+      if (nc > W) {
+        cand = true;
+        atomicAdd(&movedin[t], v);
+        k = ((uint64_t)(uint32_t)t << 31) |
+            (uint64_t)h32(wadd(v0, r), salt2);
+        for (int p = 0; p < passes; ++p)
+          atomicAdd(&s_hist[p * RADIX + digit(k, p)], 1);
+      }
     }
   }
-  key[r] = k;
-  val[r] = r;
+  bool f = false;
+  int c = cand ? 1 : 0;
+  cta_seg_scan(f, c, sf, sv);  // c: candidates up to and including r
+  if (threadIdx.x == 0) {
+    const int agg = sv[31];
+    s_excl = lookback_sum(cstat, tile, agg);
+    if (tile == (int)gridDim.x - 1) ctr[C_COUNT] = s_excl + agg;
+  }
+  __syncthreads();
+  if (cand) {
+    ckey[s_excl + c - 1] = k;
+    crow[s_excl + c - 1] = r;
+  }
+  for (int i = threadIdx.x; i < passes * RADIX; i += TILE)
+    if (s_hist[i]) atomicAdd(&hist[i], s_hist[i]);
 }
 
-__global__ void lp_move_scan_init(const uint64_t* key, const int* val,
-                                  const int* vw, int Rp, int* sum,
-                                  uint8_t* flag) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Rp) return;
-  const uint64_t k = key[p];
-  sum[p] = k != ~0ull ? vw[val[p]] : 0;
-  flag[p] = p == 0 || (k >> 31) != (key[p - 1] >> 31);
+// The sort of the candidates, the cumulative moved-in weight of each
+// within its target in sorted order, and the revert: one CTA, which walks
+// the list in TILE-key tiles. A pass ranks each tile in shared memory and
+// places it after the keys of smaller digits (hist) and the equal digits
+// of earlier tiles (base[d] grows tile by tile): (k0, r0) -> (k1, r1) and
+// back. The scan carries (head seen, sum) from tile to tile.
+__global__ void __launch_bounds__(TILE)
+lp_move_sort_revert(uint64_t* k0, int* r0, uint64_t* k1, int* r1,
+                    int passes, const int* hist, const int* vw,
+                    const int* newcw, const int* movedin, int W,
+                    const int* ctr, int* moved) {
+  __shared__ unsigned short wh[32 * RADIX];
+  __shared__ int cnt[RADIX], base[RADIX];
+  __shared__ int s_w[RADIX / 32], sf[32], sv[32];
+  const int count = ctr[C_COUNT];
+  if (count == 0) return;  // the usual case: no pass need wait on hist
+  for (int pass = 0; pass < passes; ++pass) {
+    const uint64_t* kin = pass & 1 ? k1 : k0;
+    const int* rin = pass & 1 ? r1 : r0;
+    uint64_t* kout = pass & 1 ? k0 : k1;
+    int* rout = pass & 1 ? r0 : r1;
+    const int h = threadIdx.x < RADIX ? hist[pass * RADIX + threadIdx.x] : 0;
+    const int b = excl_scan_256(h, s_w);  // keys of smaller digits
+    if (threadIdx.x < RADIX) base[threadIdx.x] = b;
+    for (int t0 = 0; t0 < count; t0 += TILE) {
+      const int p = t0 + threadIdx.x;
+      const bool valid = p < count;
+      const uint64_t k = valid ? kin[p] : 0;
+      const int row = valid ? rin[p] : 0;
+      const int d = valid ? digit(k, pass) : -1;
+      const int rank = rank_in_tile(d, wh, cnt);
+      if (valid) {
+        kout[base[d] + rank] = k;
+        rout[base[d] + rank] = row;
+      }
+      __syncthreads();
+      if (threadIdx.x < RADIX) base[threadIdx.x] += cnt[threadIdx.x];
+    }
+    __syncthreads();  // this pass's stores before the next pass's loads
+  }
+  const uint64_t* ks = passes & 1 ? k1 : k0;
+  const int* rs = passes & 1 ? r1 : r0;
+  int carry = 0;
+  for (int t0 = 0; t0 < count; t0 += TILE) {
+    const int p = t0 + threadIdx.x;
+    const bool valid = p < count;
+    const uint64_t k = valid ? ks[p] : 0;
+    const int row = valid ? rs[p] : 0;
+    bool f = valid && (p == 0 || (ks[p - 1] >> 31) != (k >> 31));
+    int within = valid ? vw[row] : 0;
+    cta_seg_scan(f, within, sf, sv);
+    if (!f) within = wadd(within, carry);
+    if (valid) {
+      int allowed = wsub(W, wsub(newcw[row], movedin[(int)(k >> 31)]));
+      allowed = allowed > 0 ? allowed : 0;
+      if (within > allowed) moved[row] = 0;
+    }
+    carry = sf[31] ? sv[31] : wadd(carry, sv[31]);
+    __syncthreads();  // sf / sv are the next tile's
+  }
 }
 
-__global__ void lp_move_revert(const uint64_t* key, const int* val,
-                               const int* within, const int* tgt,
-                               const int* newcw, const int* movedin, int Rp,
-                               int W, int* moved) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Rp || key[p] == ~0ull) return;
-  const int r = val[p];
-  int allowed = wsub(W, wsub(newcw[r], movedin[tgt[r]]));
-  allowed = allowed > 0 ? allowed : 0;
-  if (within[p] > allowed) moved[r] = 0;
+// Scratch layout, 256-byte aligned pieces. Everything from din on is
+// cleared by one memset per call.
+struct Scratch {
+  int *pmove, *light, *newcw;
+  uint64_t* key[2];
+  int* row[2];
+  int *din, *dout, *movedin, *ctr, *hist;
+  uint64_t* cstat;
+  char* zero;
+  size_t zero_bytes;
+};
+
+size_t carve(char* base, int R, int num_labels, Scratch* s) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += (bytes + 255) & ~(size_t)255;
+    return p;
+  };
+  const size_t r = (size_t)R, nl = (size_t)num_labels;
+  const size_t tiles = (r + TILE - 1) / TILE;
+  s->pmove = (int*)take(4 * r);
+  s->light = (int*)take(4 * r);
+  s->newcw = (int*)take(4 * r);
+  for (int i = 0; i < 2; ++i) {
+    s->key[i] = (uint64_t*)take(8 * r);
+    s->row[i] = (int*)take(4 * r);
+  }
+  const size_t zero_from = off;
+  s->din = (int*)take(4 * nl);
+  s->dout = (int*)take(4 * nl);
+  s->movedin = (int*)take(4 * nl);
+  s->ctr = (int*)take(4 * N_COUNTERS);
+  s->hist = (int*)take(4 * MAX_PASSES * RADIX);
+  s->cstat = (uint64_t*)take(8 * tiles);
+  s->zero = base ? base + zero_from : nullptr;
+  s->zero_bytes = off - zero_from;
+  return off;
+}
+
+// Radix passes over the key (target << 31) | rank.
+int key_passes(int num_labels) {
+  const unsigned top = (unsigned)(num_labels - 1);
+  const int bits = 31 + (top ? 32 - __builtin_clz(top) : 0);
+  return (bits + 7) / 8;
 }
 
 }  // namespace
 
+// Bytes of scratch lp_move_chunk needs for R rows and num_labels labels.
+extern "C" int lp_move_scratch_bytes(int R, int num_labels, int64_t* bytes) {
+  if (R < 1 || num_labels < 1) return (int)cudaErrorInvalidValue;
+  Scratch s;
+  *bytes = (int64_t)carve(nullptr, R, num_labels, &s);
+  return 0;
+}
+
 // nbud == nullptr selects the host admission form (fit_sum). Labels in
-// own / nlab (and hence targets) must lie in [0, num_labels): the weight
-// tables din / dout / movedin hold num_labels ints each and must be zero
-// on entry. Rp is R rounded up to a power of two; key / val / sum /
-// sum_tmp / flag / flag_tmp hold Rp entries, newcw R.
+// own / nlab (and hence targets) must lie in [0, num_labels); a mover's
+// label outside it stops the kernel (__trap). scratch holds
+// lp_move_scratch_bytes(R, num_labels) bytes, 256-byte aligned, in any
+// state; moved and tgt hold R ints each.
 extern "C" int lp_move_chunk(const int* nlab, const int* nw, const int* ncw,
                              const int* nbud, const int* own, const int* vw,
                              int R, int D, int W, int v0, uint32_t salt,
-                             int num_labels, int Rp, int* moved, int* tgt,
-                             int* pmove, int* light, int* newcw, int* din,
-                             int* dout, int* movedin, uint64_t* key, int* val,
-                             int* sum, int* sum_tmp, uint8_t* flag,
-                             uint8_t* flag_tmp, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  lp_move_rows<<<(R + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
-      nlab, nw, ncw, nbud, own, vw, R, D, W, salt, tgt, pmove, light);
-  lp_move_tally<<<(R + 255) / 256, 256, 0, s>>>(tgt, pmove, own, vw, R,
-                                                num_labels, din, dout);
-  lp_move_candidates<<<(Rp + 255) / 256, 256, 0, s>>>(
-      tgt, pmove, light, vw, din, dout, R, Rp, W, v0, salt ^ 0x9E3779B9u,
-      newcw, movedin, moved, key, val);
-  cudaError_t err = bitonic_sort(key, val, Rp, s);
+                             int num_labels, int* moved, int* tgt,
+                             void* scratch, void* stream) {
+  if (R < 1 || D < 1 || num_labels < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Scratch s;
+  carve((char*)scratch, R, num_labels, &s);
+  const int passes = key_passes(num_labels);
+  const int tiles = (R + TILE - 1) / TILE;
+  cudaError_t err = cudaMemsetAsync(s.zero, 0, s.zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  lp_move_scan_init<<<(Rp + 255) / 256, 256, 0, s>>>(key, val, vw, Rp, sum,
-                                                      flag);
-  err = seg_scan(sum, flag, sum_tmp, flag_tmp, Rp, false, s);
-  if (err != cudaSuccess) return (int)err;
-  lp_move_revert<<<(Rp + 255) / 256, 256, 0, s>>>(key, val, sum, tgt, newcw,
-                                                  movedin, Rp, W, moved);
+  lp_move_rows<<<(R + WARPS * ROWS - 1) / (WARPS * ROWS), WARPS * 32, 0,
+                 st>>>(
+      nlab, nw, ncw, nbud, own, vw, R, D, W, salt, num_labels, tgt, s.pmove,
+      s.light, s.din, s.dout);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  lp_move_candidates<<<tiles, TILE, 0, st>>>(
+      tgt, s.pmove, s.light, vw, s.din, s.dout, R, W, v0,
+      salt ^ 0x9E3779B9u, passes, s.newcw, s.movedin, moved, s.key[0],
+      s.row[0], s.ctr, s.hist, s.cstat);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  lp_move_sort_revert<<<1, TILE, 0, st>>>(
+      s.key[0], s.row[0], s.key[1], s.row[1], passes, s.hist, vw, s.newcw,
+      s.movedin, W, s.ctr, moved);
   return (int)cudaGetLastError();
 }

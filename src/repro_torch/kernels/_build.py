@@ -130,13 +130,13 @@ def check(err: int, what: str) -> None:
                            f"cudaError_t {err}")
 
 
-# the bitonic sorts of csrc/common.cuh run over a power-of-two length and
-# index it with 32-bit offsets
+# seg_merge's bitonic sort (csrc/common.cuh) runs over a power-of-two
+# length and indexes it with 32-bit offsets
 MAX_SORT_LENGTH = 2**30
 
 
 def sort_length(n: int) -> int:
-    """``n`` rounded up to the sorts' power-of-two length (at least 2)."""
+    """``n`` rounded up to the sort's power-of-two length (at least 2)."""
     return max(2, 1 << max(0, int(n) - 1).bit_length())
 
 
@@ -151,8 +151,11 @@ def ptr(t) -> int:
 
 
 def stream_of(t) -> int:
+    """The handle of the current stream of ``t``'s CUDA device (the raw
+    query: ``torch.cuda.current_stream`` builds a Stream object, which
+    costs more host time than a small launch)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_index_range(what: str, t, hi: int) -> None:

@@ -8,13 +8,27 @@ kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .. import _build
 from .ref import lp_move_chunk_ref
 
 _SIG = {"lp_move_chunk": [_build.P] * 6 + [_build.I] * 4 + [_build.U]
-        + [_build.I] * 2 + [_build.P] * 15}
+        + [_build.I] + [_build.P] * 4,
+        "lp_move_scratch_bytes": [_build.I, _build.I, _build.P]}
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(R: int, num_labels: int) -> int:
+    """Bytes of scratch the kernel needs for this chunk shape."""
+    lib = _build.load("lp_move", _SIG)
+    n = ctypes.c_int64()
+    _build.check(lib.lp_move_scratch_bytes(R, num_labels,
+                                           ctypes.addressof(n)), "lp_move")
+    return n.value
 
 
 def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
@@ -34,29 +48,21 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
         _build.require(f"lp_move_chunk {name}", t, torch.int32, (R, D), dev)
     for name, t in (("own", own), ("vw", vw)):
         _build.require(f"lp_move_chunk {name}", t, torch.int32, (R,), dev)
-    Rp = _build.sort_length(R)
-    if Rp > _build.MAX_SORT_LENGTH:   # row ids and the sort index are 32-bit
-        raise ValueError(f"lp_move_chunk: R={R} rows exceed the launch "
-                         "limit")
+    if not (0 < R < 2**31 and 0 < D < 2**31 and 0 < num_labels < 2**31):
+        raise ValueError(f"lp_move_chunk: R={R}, D={D}, num_labels="
+                         f"{num_labels} outside the launch limits [1, 2^31)"
+                         " (int32 row ids and labels)")
     lib = _build.load("lp_move", _SIG)
-    i32 = dict(dtype=torch.int32, device=dev)
-    moved = torch.empty(R, **i32)
-    tgt = torch.empty(R, **i32)
-    pmove = torch.empty(R, **i32)
-    light = torch.empty(R, **i32)
-    newcw = torch.empty(R, **i32)
-    tables = torch.zeros(3, num_labels, **i32)
-    key = torch.empty(Rp, dtype=torch.int64, device=dev)
-    val = torch.empty(Rp, **i32)
-    sums = torch.empty(2, Rp, **i32)
-    flags = torch.empty(2, Rp, dtype=torch.uint8, device=dev)
+    moved, tgt = torch.empty((2, R), dtype=torch.int32, device=dev)
+    # the kernel's scratch, one allocation apart from the outputs so that
+    # they do not keep it alive (the kernel clears what it needs cleared)
+    scratch = torch.empty(_scratch_bytes(R, int(num_labels)),
+                          dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = lib.lp_move_chunk(
         p(nlab), p(nw), p(ncw), p(nbud), p(own), p(vw), R, D, int(W),
-        int(v0), int(salt) & 0xFFFFFFFF, int(num_labels), Rp, p(moved),
-        p(tgt), p(pmove), p(light), p(newcw), p(tables[0]), p(tables[1]),
-        p(tables[2]), p(key), p(val), p(sums[0]), p(sums[1]), p(flags[0]),
-        p(flags[1]), _build.stream_of(nlab))
+        int(v0), int(salt) & 0xFFFFFFFF, int(num_labels), p(moved), p(tgt),
+        p(scratch), _build.stream_of(nlab))
     _build.check(err, "lp_move")
     _build.count_launch("lp_move")
     return moved, tgt

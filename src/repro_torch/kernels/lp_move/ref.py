@@ -46,15 +46,10 @@ def tie_chain(score, weight_key, nlab, salt):
     return best[:, 0], light[:, 0], tgt
 
 
-def lp_move_chunk_ref(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
-                      num_labels: int, nbud=None):
-    """``(moved, tgt)`` (R,) int32 for one ELL chunk.
-
-    nlab/nw/ncw[/nbud] are (R, D) int32 (label -1, weight 0 on padding),
-    own/vw (R,) int32; ``nbud is None`` selects the host admission form
-    ``ncw + vw <= W``, else the distributed ``ncw <= nbud - vw``. Labels
-    lie in [0, num_labels)."""
-    R, _ = nlab.shape
+def move_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
+                     nbud=None):
+    """Phase A per row: ``(mv, tgt, light)``, whether the row moves, its
+    target (``own`` if it stays) and the weight key of its best lanes."""
     validn = nlab >= 0
     staying = nlab == own[:, None]
     if nbud is None:
@@ -66,15 +61,33 @@ def lp_move_chunk_ref(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     best, light, tgt = tie_chain(score, ncw, nlab, salt)
     own_conn = torch.where(staying & validn, nw, 0).sum(1).to(torch.int32)
     mv = (best > own_conn) & (tgt != own) & (tgt < I32_MAX) & (best > 0)
-    tgt = torch.where(mv, tgt, own)
+    return mv, torch.where(mv, tgt, own), light
 
-    # phase B: weight tables instead of pairwise masks
+
+def candidates_ref(mv, tgt, own, vw, light, W: int, num_labels: int):
+    """Phase B's candidates, the movers whose target would end above
+    ``W``, from label-indexed weight tables instead of pairwise masks:
+    ``(cand, new_cw)``, ``new_cw`` the target's weight after every move."""
     t_i = tgt.long()
     mvw = torch.where(mv, vw, 0)
     d_in = segment_sum(mvw, t_i, num_labels)
     d_out = segment_sum(mvw, own.long(), num_labels)
     new_cw = light + d_in[t_i] - d_out[t_i]
-    cand = mv & (new_cw > W)
+    return mv & (new_cw > W), new_cw
+
+
+def lp_move_chunk_ref(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
+                      num_labels: int, nbud=None):
+    """``(moved, tgt)`` (R,) int32 for one ELL chunk.
+
+    nlab/nw/ncw[/nbud] are (R, D) int32 (label -1, weight 0 on padding),
+    own/vw (R,) int32; ``nbud is None`` selects the host admission form
+    ``ncw + vw <= W``, else the distributed ``ncw <= nbud - vw``. Labels
+    lie in [0, num_labels)."""
+    R, _ = nlab.shape
+    mv, tgt, light = move_targets_ref(nlab, nw, ncw, own, vw, W, salt, nbud)
+    cand, new_cw = candidates_ref(mv, tgt, own, vw, light, W, num_labels)
+    t_i = tgt.long()
     cvw = torch.where(cand, vw, 0)
     moved_in = segment_sum(cvw, t_i, num_labels)[t_i]
     rows = torch.arange(R, dtype=torch.int32, device=nlab.device)

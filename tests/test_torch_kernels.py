@@ -113,6 +113,70 @@ def test_lp_move_plain_reverts_over_budget_movers():
     assert (tgt.numpy() == 7).all()
 
 
+def _stress_inputs(kind, R, seed=5):
+    """An ELL chunk that loads the kernel's phase B (the candidates of the
+    revert): ``none`` has no candidate, ``one_target`` makes every row a
+    mover to label 0 and so a candidate, ``spread`` puts candidates on
+    many targets among ~2^21 labels (a 52-bit sort key), ``holes`` has
+    -1 lanes anywhere in a row, not only a suffix. Tail rows are all
+    padding."""
+    rng = np.random.default_rng(seed)
+    D = {"none": 16, "one_target": 4, "spread": 24, "holes": 40}[kind]
+    if kind == "one_target":
+        W, nl = 10, R + 1
+        nlab = np.full((R, D), -1)
+        nlab[:, 0] = 0
+        nw = np.where(nlab >= 0, 3, 0)
+        ncw = np.where(nlab >= 0, 1, I32_MAX)
+        own = 1 + np.arange(R)
+        vw = np.full(R, 2)
+    else:
+        W, nl = {"none": (10**6, 40), "spread": (40, 2**21 - 5),
+                 "holes": (30, 50)}[kind]
+        pool = rng.choice(nl, min(nl, max(2, R // 4)), replace=False)
+        nlab = pool[rng.integers(0, pool.size, (R, D))]
+        nlab[rng.random((R, D)) < 0.4] = -1
+        nlab[R - R // 8:] = -1
+        nw = np.where(nlab >= 0, rng.integers(1, 6, (R, D)), 0)
+        lo, hi = (0, 20) if kind == "none" else (W // 2, W - 2)
+        ncw = np.where(nlab >= 0, rng.integers(lo, hi, (R, D)), I32_MAX)
+        own = pool[rng.integers(0, pool.size, R)]
+        vw = rng.integers(1, 4, R)
+    nbud = np.minimum(ncw + vw[:, None] + rng.integers(0, 2, (R, D)),
+                      I32_MAX)
+    v0 = int(rng.integers(0, 1000))
+    salt = int(rng.integers(0, 2**32))
+    arrs = [x.astype(np.int32) for x in (nlab, nw, ncw, nbud, own, vw)]
+    return (*arrs, v0, salt, nl, W)
+
+
+STRESS = [("none", 3000), ("one_target", 4000), ("spread", 2000),
+          ("holes", 2000)]
+
+
+@pytest.mark.parametrize("fit_sum", [True, False])
+@pytest.mark.parametrize("kind,R", STRESS)
+def test_lp_move_plain_matches_reference_on_phase_b_stress(kind, R, fit_sum):
+    nlab, nw, ncw, nbud, own, vw, v0, salt, nl, W = _stress_inputs(kind, R)
+    scal = np.array([[W, v0]], dtype=np.int32)
+    jargs = [jnp.asarray(x) for x in (nlab, nw, ncw, own[:, None],
+                                      vw[:, None], scal)]
+    jargs.append(jnp.asarray(np.array([[salt]], dtype=np.uint32)))
+    r_moved, r_tgt = ref_lp_ref.lp_move_chunk_ref(
+        *jargs, None if fit_sum else jnp.asarray(nbud), fit_sum=fit_sum)
+    moved, tgt = lp_move.lp_move_chunk(
+        t32(nlab), t32(nw), t32(ncw), t32(own), t32(vw), W, v0, salt, nl,
+        nbud=None if fit_sum else t32(nbud))
+    np.testing.assert_array_equal(moved.numpy(), np.asarray(r_moved)[:, 0])
+    np.testing.assert_array_equal(tgt.numpy(), np.asarray(r_tgt)[:, 0])
+    movers = int((tgt.numpy() != own).sum())
+    assert movers > 0 and not moved.numpy()[R - R // 8:].any()
+    if kind == "none":
+        assert int(moved.sum()) == movers           # nothing reverted
+    if kind == "one_target":     # room W - light = 9: four movers of 2 stay
+        assert movers == R and int(moved.sum()) == 4
+
+
 # ---------------------------------------------------------------------------
 # seg_merge
 # ---------------------------------------------------------------------------
@@ -269,9 +333,13 @@ def _small_calls(device):
     lab = rng.integers(-1, 3, (8, 4))
     g_own = rng.integers(0, 3, (8, 1))
     blocks = rng.integers(0, 3, (4, 4, 4))      # integer-valued: exact sums
+    st = _stress_inputs("one_target", 1500)    # two 1024-key sort tiles
     return {
         "lp_move": lambda: lp_move.lp_move_chunk(
             on(nlab), on(nw), on(ncw), on(own), on(vw), W, v0, salt, nl),
+        "lp_move_stress": lambda: lp_move.lp_move_chunk(
+            *(on(a) for a in st[:3]), on(st[4]), on(st[5]), st[9], st[6],
+            st[7], st[8], nbud=on(st[3])),
         "seg_merge": lambda: seg_merge.seg_merge(on(src), on(dst), on(w)),
         "bal_scores": lambda: bal_round.bal_scores(
             *(on(a) for a in arrs), bsalt),
@@ -293,7 +361,8 @@ def _small_calls(device):
 MICRO = ["lp_gain", "bsr_spmm", "embedding_bag"]
 
 
-@pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
+@pytest.mark.parametrize("kernel", ["lp_move", "lp_move_stress",
+                                    "seg_merge", "bal_scores",
                                     "greedy_pick"] + MICRO)
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
     before = dict(_build.LAUNCHES)
@@ -302,7 +371,8 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
     assert _build.LAUNCHES == before
 
 
-@pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
+@pytest.mark.parametrize("kernel", ["lp_move", "lp_move_stress",
+                                    "seg_merge", "bal_scores",
                                     "greedy_pick"] + MICRO)
 def test_other_devices_raise_instead_of_falling_back(kernel):
     with pytest.raises(ValueError, match="unsupported device"):
@@ -334,13 +404,25 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["lp_move", "seg_merge", "bal_scores",
+@pytest.mark.parametrize("kernel", ["lp_move", "lp_move_stress",
+                                    "seg_merge", "bal_scores",
                                     "greedy_pick"] + MICRO)
 def test_kernel_matches_plain_version_on_gpu(kernel, cuda_device):
-    before = _build.LAUNCHES[kernel]
+    counter = kernel.removesuffix("_stress")
+    before = _build.LAUNCHES[counter]
     got = _small_calls(cuda_device)[kernel]()
     torch.cuda.synchronize()
     want = _small_calls(torch.device("cpu"))[kernel]()
-    assert _build.LAUNCHES[kernel] == before + 1
+    assert _build.LAUNCHES[counter] == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_lp_move_outputs_hold_no_scratch(cuda_device):
+    moved, tgt = _small_calls(cuda_device)["lp_move_stress"]()
+    R = moved.shape[0]
+    # moved and tgt share one 8 R-byte allocation, apart from the scratch
+    assert moved.untyped_storage().data_ptr() == \
+        tgt.untyped_storage().data_ptr()
+    assert moved.untyped_storage().nbytes() == 8 * R

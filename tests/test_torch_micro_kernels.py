@@ -20,6 +20,8 @@ Inputs come from seeded numpy generators (no Hypothesis: its example
 database is tracked and a property run rewrites it).
 """
 import importlib.util
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -301,6 +303,39 @@ def test_embedding_bag_index_out_of_range_raises(bad):
         eb_ops.embedding_bag(idx, table, device=CPU)
     with pytest.raises(ValueError, match="out of range"):
         eb.embedding_bag_1row(torch.from_numpy(idx), torch.from_numpy(table))
+
+
+@pytest.mark.parametrize("bad", [-1, 6])
+def test_embedding_bag_entry_checks_indices_on_the_host(bad):
+    """The entry point's range check runs on the numpy indices before any
+    tensor reaches a device: a device that runs nothing still gets it."""
+    table = np.ones((6, 4), dtype=np.float32)
+    idx = np.array([[0, 1], [bad, 2]], dtype=np.int32)
+    with pytest.raises(ValueError, match=r"out of range \[0, 6\)"):
+        eb_ops.embedding_bag(idx, table, device="meta")
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_traps_on_an_unchecked_index():
+    """An index outside [0, V) that reaches the kernel through the
+    unchecked launch path stops it (``__trap``) instead of being read; the
+    CUDA context is unusable afterwards, so this runs in a child."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "from repro_torch.kernels.embedding_bag import embedding_bag as eb\n"
+        "table = torch.ones(6, 64, device='cuda')\n"
+        "idx = torch.tensor([[0], [6]], dtype=torch.int32, device='cuda')\n"
+        "out = eb._gather(idx, table)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NOT STOPPED', float(out.sum()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode != 0, proc.stdout
+    assert "NOT STOPPED" not in proc.stdout
+    assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
 
 
 def test_micro_kernels_count_no_launch_on_the_cpu():
