@@ -17,7 +17,10 @@ exits non-zero if any one fails:
      chunks that load its phase B (no candidate; every row a candidate to
      one target, R = 4,500 and 70,001; candidates spread over ~2^21
      labels; -1 lanes anywhere in a row), each also timed beside its
-     count of candidates; embedding_bag at D=64 with BAG 1, 4 and 17 and
+     count of candidates; seg_merge on ragged lengths, ids at a key-width
+     boundary, I32_MAX in one half only, negative and full-width ids, one
+     key over several tiles, all records invalid, wrapping run totals
+     and L = 2^22 + 1; embedding_bag at D=64 with BAG 1, 4 and 17 and
      B not a multiple of its bags per thread;
   3. the anchor: rgg2d n=4000, k=16, eps=0.03 with the benchmark config
      (C=256, 4 chunks, 2 IP repetitions) must give cut 819, feasible,
@@ -28,15 +31,23 @@ exits non-zero if any one fails:
      zeroed just before the run, read just after it). The port has no
      fused-to-composed fallback: a fused call launches its kernel or
      raises. Each lp_move call's count of phase-B candidates (by the plain
-     version's rule on its inputs) is printed;
+     version's rule on its inputs) is printed, and each seg_merge call's
+     length, key width and radix passes; so are the seconds each trace
+     phase spent in the host functions permute, degree_bucket_order,
+     build_move_chunks, lp.build_chunks, contract and dedup_arcs (the
+     module attributes wrapped, not edited);
   5. each kernel against its plain version on the largest input the main
      path gave it (captured during phase 4), exact equality, both timed
-     with CUDA events; beyond the main path, seg_merge at 2^24 records
-     and the balancer at the finest level (a skewed partition, its own
-     launch counts printed apart). lp_move's device launches per call
-     (a torch.profiler window) must be the same at the main path's chunk
-     and at 67 of its rows, at most 12, and a call must not wait for the
-     stream (``set_sync_debug_mode("error")``);
+     with CUDA events; beyond the main path, seg_merge on the 2^20
+     graph's 8,378,246 arcs merged in vertex pairs and the balancer at
+     the finest level (a skewed partition, its own launch counts printed
+     apart). lp_move's and seg_merge's device launches per call (nodes of
+     a captured CUDA graph) must be the same at the main path's largest
+     call and at 67 rows / 5 records of it, at most 12, and a call must
+     not wait for the stream (``set_sync_debug_mode("error")``);
+     seg_merge's device time is printed L2-warm and L2-cold (four input
+     copies in turn), the plain version's alike, beside one torch.sort of
+     its packed keys ("sort only", a yardstick);
   6. the kernels off the main path, each through its own entry point at
      full size on the default (CUDA) device, with launch counts zeroed
      just before and read just after each: ``lp_gain`` on the 2^20 graph
@@ -192,15 +203,13 @@ def ragged_cases(torch, rng, dev):
                       (*args, W, int(rng.integers(0, 1000)),
                        int(rng.integers(0, 2**32)), nl), extra,
                       f"phase B {kind}{' nbud' if dist else ''}"))
-    for L, span in ((1, 3), (3, 2), (1000, 40), (5000, 300), (70001, 2000)):
-        src = rng.integers(0, span, L)
-        dst = rng.integers(0, span, L)
-        inv = rng.random(L) < 0.1
-        src[inv] = dst[inv] = 2**31 - 1
-        w = np.where(inv, 0, rng.integers(1, 9, L))
+    for kind, L, span in seg_merge_cases():
+        src, dst, w, max_id = seg_merge_records(rng, kind, L, span)
         cases.append(("seg_merge", seg_merge.seg_merge,
                       seg_ref.seg_merge_ref,
-                      tuple(_i32(torch, x, dev) for x in (src, dst, w)), {}))
+                      tuple(_i32(torch, x, dev) for x in (src, dst, w)),
+                      dict(max_id=max_id),
+                      f"{kind}, key bits {seg_ref.key_bits(max_id)}"))
     for R, D, K, restricted in ((1, 1, 4, False), (77, 9, 64, False),
                                 (513, 33, 64, True), (2000, 20, 128, False)):
         nlab = rng.integers(0, K, (R, D))
@@ -234,6 +243,61 @@ def ragged_cases(torch, rng, dev):
         cases.append(("greedy_pick", bal_round.greedy_pick,
                       bal_ref.greedy_pick_ref, args, {}))
     return cases + micro_ragged_cases(torch, rng, dev)
+
+
+def seg_merge_cases():
+    """(kind, L, id span) of phase 2's seg_merge cases: ragged lengths
+    (none a power of two but 1), ids at a key-width boundary, I32_MAX in
+    one half only, negative ids, one key over several 4096-key tiles,
+    all records invalid, run totals that wrap int32, L = 2^22 + 1, and
+    full-width ids near 2^31 - 2."""
+    return (("random", 1, 3), ("random", 3, 2), ("random", 1000, 40),
+            ("random", 5000, 300), ("random", 70001, 2000),
+            ("width", 3000, 128), ("one_half", 5000, 300),
+            ("negative", 9999, 10000), ("long_run", 20000, 50),
+            ("all_invalid", 3333, 1), ("wrap", 6000, 30),
+            ("random", 2**22 + 1, 136674), ("full_width", 5000, 40),
+            ("full_width_bound", 5000, 40))
+
+
+def seg_merge_records(rng, kind, L, span):
+    """(src, dst, w, max_id) of one seg_merge case; max_id is the bound
+    the main path's caller passes (the largest valid id), None where ids
+    are negative (full 32-bit key halves)."""
+    I = 2**31 - 1
+    src = rng.integers(0, span, L)
+    dst = rng.integers(0, span, L)
+    w = rng.integers(1, 9, L)
+    max_id = span - 1
+    if kind == "random":
+        inv = rng.random(L) < 0.1
+        src[inv] = dst[inv] = I
+        w[inv] = 0
+    elif kind == "width":          # a max id of 2^7 - 1 needs 8 bits
+        src[:5] = dst[5:9] = span - 1
+        dst[rng.random(L) < 0.1] = I
+    elif kind == "one_half":
+        src[rng.random(L) < 0.15] = I
+        dst[rng.random(L) < 0.15] = I
+    elif kind == "negative":
+        src -= span // 2
+        dst -= span // 2
+        src[:7] = I
+        max_id = None
+    elif kind == "long_run":       # 12,000 copies of one key: 3 tiles
+        take = rng.permutation(L)[:12000]
+        src[take], dst[take] = 17, 4
+    elif kind == "all_invalid":
+        src[:] = dst[:] = I
+        w[:] = 0
+        max_id = 0
+    elif kind == "wrap":
+        w = rng.integers(2**29, 2**30, L)
+    elif kind.startswith("full_width"):
+        src = I - 1 - src
+        dst = I - 1 - dst
+        max_id = I - 1 if kind.endswith("bound") else None
+    return src, dst, w, max_id
 
 
 def lp_move_stress(rng, kind, R, dist):
@@ -388,7 +452,7 @@ def phase_ragged(torch, dev):
         err, _ = compare(name, got, want)
         shape = tuple(args[0].shape)
         timed = ""
-        if what:        # lp_move's phase-B chunks: candidates and time
+        if what and name == "lp_move":   # phase-B chunks: candidates, time
             ms = cuda_ms(torch, lambda: fn(*args, **kw), 5)
             timed = (f"; {int(candidate_count(args, kw))} candidates, "
                      f"kernel {ms:.4f} ms")
@@ -475,7 +539,72 @@ class Capture:
             setattr(module, attr, fn)
 
 
-def phase_main_path(torch, api, build, candidates):
+class HostTimers:
+    """Wall seconds of the main path's host functions, summed per trace
+    phase. It wraps the module attributes the core calls them through
+    (the modules are not edited) and ``deep_mgp.trace_event``, whose call
+    closes a phase: permute (coarsening's and refinement's),
+    degree_bucket_order, build_move_chunks, lp.build_chunks, contract
+    (np.unique, dedup_arcs and from_coo inside it) and dedup_arcs."""
+
+    def __init__(self):
+        self.current = {}
+        self.phases = []
+        self._undo = []
+
+    def wrap(self, module, attr, label):
+        fn = getattr(module, attr)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.current[label] = self.current.get(label, 0.0) + \
+                    time.perf_counter() - t0
+
+        setattr(module, attr, timed)
+        self._undo.append((module, attr, fn))
+
+    def install(self):
+        from repro_torch.core import (coarsening, contraction, deep_mgp, lp,
+                                      refinement)
+        from repro_torch.kernels.lp_move import ops as move_ops
+
+        for module in (coarsening, refinement):
+            self.wrap(module, "permute", "permute")
+            self.wrap(module, "degree_bucket_order", "degree_bucket_order")
+        self.wrap(move_ops, "build_move_chunks", "build_move_chunks")
+        self.wrap(lp, "build_chunks", "lp.build_chunks")
+        self.wrap(deep_mgp, "contract", "contract")
+        self.wrap(contraction, "dedup_arcs", "dedup_arcs")
+        trace_event = deep_mgp.trace_event
+
+        def closing(trace, **record):
+            trace_event(trace, **record)
+            self.phases.append((record.get("phase"), record.get("level"),
+                                record.get("n"), record.get("time_s"),
+                                self.current))
+            self.current = {}
+
+        deep_mgp.trace_event = closing
+        self._undo.append((deep_mgp, "trace_event", trace_event))
+
+    def restore(self):
+        for module, attr, fn in reversed(self._undo):
+            setattr(module, attr, fn)
+        self._undo = []
+
+    def report(self):
+        for phase, level, n, secs, spent in self.phases:
+            where = phase + ("" if level is None else f" level {level}")
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(spent.items()))
+            say(f"  host s, {where} (n={n}, time_s {secs}): {parts or '-'}; "
+                f"sum {sum(spent.values()) - spent.get('dedup_arcs', 0.0):.4f}"
+                " (dedup_arcs counted inside contract)")
+
+
+def phase_main_path(torch, api, build, candidates, seg_calls):
     say(f"== phase 4: main path rgg2d {FULL_N}, k=16, preset fast, fused")
     spec = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17)
     t0 = time.perf_counter()
@@ -483,12 +612,17 @@ def phase_main_path(torch, api, build, candidates):
     say(f"  graph n={g.n} m={g.m} max_deg={int(g.degrees().max())} "
         f"({time.perf_counter() - t0:.2f} s, set-up)")
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    res = run_partition(api, g, 16, "fused")
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)    # the main path's run and no other
-    wall = time.perf_counter() - t0
+    timers = HostTimers()
+    timers.install()
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = run_partition(api, g, 16, "fused")
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # the main path's run and no other
+        wall = time.perf_counter() - t0
+    finally:
+        timers.restore()
     cut = int(res.metrics["cut"])
     say(f"  cut {cut} feasible {res.feasible} imbalance "
         f"{res.metrics.get('imbalance')} wall {wall:.3f} s peak device "
@@ -503,6 +637,11 @@ def phase_main_path(torch, api, build, candidates):
         f"{counts}")
     check(len(counts) == launches["lp_move"],
           "main path: a candidate count for every lp_move call")
+    say(f"  seg_merge calls ({len(seg_calls)}): (records L, key bits per "
+        f"half, radix passes) {seg_calls}")
+    check(len(seg_calls) == launches["seg_merge"],
+          "main path: an L and key width for every seg_merge call")
+    timers.report()
     check(res.feasible and cut == FULL_CUT,
           f"main path: cut {cut}, feasible {res.feasible}; expected "
           f"{FULL_CUT}, feasible")
@@ -743,12 +882,65 @@ def lp_move_launches(torch, fn, args, kw):
 
 
 def synthetic_seg_merge(torch, g, dev):
-    """2^24 padded records: the fine graph's arcs merged in vertex pairs
-    (``v // 2``), so runs of duplicates and self loops both occur."""
-    src = torch.from_numpy((g.arc_tails() // 2).astype(np.int32)).to(dev)
-    dst = torch.from_numpy((g.adjncy // 2).astype(np.int32)).to(dev)
-    w = torch.from_numpy(g.eweights.astype(np.int32)).to(dev)
-    return [src, dst, w], {}
+    """The fine graph's 8,378,246 arcs merged in vertex pairs (``v //
+    2``), unpadded, so runs of duplicates and self loops both occur. Its
+    ids reach 2^19 - 1, so the key's halves are 20 bits wide."""
+    src = (g.arc_tails() // 2).astype(np.int32)
+    dst = (g.adjncy // 2).astype(np.int32)
+    max_id = int(max(src.max(), dst.max()))
+    return ([torch.from_numpy(x).to(dev) for x in
+             (src, dst, g.eweights.astype(np.int32))], dict(max_id=max_id))
+
+
+def seg_merge_launches_and_times(torch, fn, plain, args, kw, row):
+    """seg_merge beyond its wrapper time, on the main path's largest call:
+    device launches per call (graph nodes) at that L and at its first 5
+    records with the same key width (must be equal, at most 12); no
+    stream wait at either; device time behind a sleep kernel, L2-warm
+    (one input again) and L2-cold (four input copies in turn, 4 x 12 B x
+    L: 105 MB at level 0, beyond the 50 MB L2), for the kernel and the
+    plain version alike; and, as a yardstick, one stable torch.sort of
+    the same packed int64 keys with a gather of their int32 values ("sort
+    only": no run flags, no totals). Adds them to the record row."""
+    from repro_torch.kernels.seg_merge.ref import key_bits, key_halves
+
+    L = args[0].numel()
+    bits = key_bits(kw.get("max_id"))
+    small = [a[:5] for a in args]
+    big = lambda: fn(*args, **kw)           # noqa: E731
+    little = lambda: fn(*small, **kw)       # noqa: E731
+    big_n = say_launches(torch, "seg_merge", big, f"at L={L}")
+    small_n = say_launches(torch, "seg_merge", little,
+                           f"at L=5 (the same {bits}-bit key halves)")
+    check(big_n == small_n <= 12,
+          f"seg_merge: {big_n} and {small_n} device launches per call; "
+          "expected the same number, at most 12")
+    no_stream_wait(torch, "seg_merge", big)
+    no_stream_wait(torch, "seg_merge", little)
+    copies = [args] + [[a.clone() for a in args] for _ in range(3)]
+    warm = device_ms(torch, [big], 20)
+    cold = device_ms(torch, [functools.partial(fn, *c, **kw)
+                             for c in copies], 5)
+    plain_warm = device_ms(torch, [lambda: plain(*args, **kw)], 3)
+    plain_cold = device_ms(torch, [functools.partial(plain, *c, **kw)
+                                   for c in copies], 1)
+    say(f"  seg_merge: device time per call (CUDA events behind a sleep "
+        f"kernel) L2-warm {warm:.4f} ms, L2-cold {cold:.4f} ms; plain "
+        f"version {plain_warm:.4f} / {plain_cold:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms")
+    row.update(device_launches=big_n, device_ms=warm, device_ms_l2_cold=cold,
+               plain_device_ms=plain_warm, plain_device_ms_l2_cold=plain_cold)
+    if bits < 32:
+        hi, lo = key_halves(args[0], args[1], bits)
+        key = (hi << bits) | lo
+        sort_ms = cuda_ms(torch, lambda: args[2][torch.sort(
+            key, stable=True).indices], 20)
+        say(f"  seg_merge yardstick, sort only: torch.sort(stable) of the "
+            f"{2 * bits}-bit packed int64 keys + gather of the int32 values "
+            f"{sort_ms:.4f} ms (not the whole function: no flags, no run "
+            "totals)")
+        row["sort_only_ms"] = sort_ms
+    del copies
 
 
 def phase_kernels(torch, build, capture, launches, g, assignment, dev):
@@ -766,7 +958,8 @@ def phase_kernels(torch, build, capture, launches, g, assignment, dev):
              "greedy_pick": bal_ref.greedy_pick_ref}
     runs = [(name, *capture.inputs[name][1:]) for name in MAIN_PATH]
     # beyond the main path's own inputs (printed, not in the record):
-    # seg_merge at 2^24 padded records, the balancer at the finest level
+    # seg_merge at the 2^20 graph's 8,378,246 arcs, the balancer at the
+    # finest level
     sa, skw = synthetic_seg_merge(torch, g, dev)
     runs.append(("seg_merge", seg_mod.seg_merge, sa, skw))
     finest = Capture(torch)
@@ -789,6 +982,13 @@ def phase_kernels(torch, build, capture, launches, g, assignment, dev):
                              launches[name])
         if name == "lp_move":
             lp_move_launches(torch, fn, args, kw)
+        if name == "seg_merge" and name not in rows:
+            seg_merge_launches_and_times(torch, fn, plain[name], args, kw,
+                                         row)
+        elif name == "seg_merge":
+            say(f"  seg_merge at {args[0].numel()} records: device time per "
+                f"call {device_ms(torch, [lambda: fn(*args, **kw)], 10):.4f}"
+                " ms (L2-warm)")
         rows.setdefault(name, row)    # beyond the main path: printed only
     return [rows[name] for name in MAIN_PATH]
 
@@ -1092,6 +1292,7 @@ def main() -> int:
     from repro_torch.kernels.bal_round import ops as bal_ops
     from repro_torch.kernels.lp_move import ops as lp_ops
     from repro_torch.kernels.seg_merge import ops as seg_ops
+    from repro_torch.kernels.seg_merge.ref import key_bits, key_passes
 
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port pulled in the JAX package")
@@ -1110,12 +1311,16 @@ def main() -> int:
     capture.wrap(lp_ops, "lp_move_chunk", "lp_move",
                  after=lambda a, kw: candidates.append(
                      candidate_count(a, kw)))
-    capture.wrap(seg_ops, "seg_merge", "seg_merge")
+    seg_calls = []
+    capture.wrap(seg_ops, "seg_merge", "seg_merge",
+                 after=lambda a, kw: seg_calls.append(
+                     (a[0].numel(), key_bits(kw.get("max_id")),
+                      key_passes(key_bits(kw.get("max_id"))))))
     capture.wrap(bal_ops, "bal_scores", "bal_scores")
     capture.wrap(bal_ops, "greedy_pick", "greedy_pick")
     try:
         g, launches, assignment = phase_main_path(
-            torch, api, build, candidates)
+            torch, api, build, candidates, seg_calls)
     finally:
         capture.restore()
     kernels = phase_kernels(torch, build, capture, launches, g, assignment,

@@ -6,7 +6,9 @@ a ``BackendContext`` carrying the torch device, an optional trace list
 ``partition`` appends per-level records to, and optional precomputed
 level-0 labels. This slice of the port registers ``single`` (the
 single-process deep MGP of ``core.deep_mgp``); the distributed backends
-and the baselines are later slices.
+and the baselines are later slices. The ``auto`` policy is the
+reference's, so a request that it sends to ``dist`` or ``dist-grid``
+raises until those backends are ported (ROADMAP.md, queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -23,6 +25,14 @@ BackendFn = Callable[..., np.ndarray]
 
 _REGISTRY: Dict[str, BackendFn] = {}
 
+# below this many vertices per PE, sharding overhead dominates and the
+# auto policy stays single-process (the reference's constants)
+MIN_VERTICES_PER_DEVICE = 64
+# grid all-to-all routing pays off once the PE count is large (paper §5)
+GRID_ROUTING_MIN_DEVICES = 16
+# the reference's distributed backends, not ported yet
+DISTRIBUTED = ("dist", "dist-grid")
+
 
 def register_backend(name: str, fn: Optional[BackendFn] = None):
     """Register ``fn`` under ``name``; usable as a decorator."""
@@ -36,6 +46,11 @@ def register_backend(name: str, fn: Optional[BackendFn] = None):
 
 
 def get_backend(name: str) -> BackendFn:
+    if name in DISTRIBUTED and name not in _REGISTRY:
+        raise NotImplementedError(
+            f"backend {name!r}: the distributed engine is not ported to "
+            "repro_torch yet (ROADMAP.md, queue 1 item 5); run with "
+            "devices=1 or backend='single'")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -59,8 +74,15 @@ class BackendContext:
 
 
 def resolve_backend(req, n_graph_vertices: int) -> str:
-    """The ``auto`` policy of this slice: ``single``."""
-    return "single" if req.backend == "auto" else req.backend
+    """The ``auto`` policy: distributed iff the caller asked for more
+    than one device AND the graph is big enough to shard; grid routing
+    once the PE count is large. Pure function of the request."""
+    if req.backend != "auto":
+        return req.backend
+    P = req.devices
+    if P > 1 and n_graph_vertices >= MIN_VERTICES_PER_DEVICE * P:
+        return "dist-grid" if P >= GRID_ROUTING_MIN_DEVICES else "dist"
+    return "single"
 
 
 # ---------------------------------------------------------------------------

@@ -56,9 +56,6 @@ namespace {
 
 constexpr int WARPS = 8;        // phase A: warps per CTA
 constexpr int ROWS = 4;         // phase A: rows per warp
-constexpr int TILE = 1024;      // phase B: rows or candidates per CTA
-constexpr int RADIX = 256;      // 8-bit digits
-constexpr int MAX_PASSES = 8;   // keys of at most 31 + 31 bits
 
 // int counters at the head of the zeroed scratch: the candidate count and
 // the candidates kernel's tile ticket
@@ -195,124 +192,8 @@ lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
                w[k], c[k], b[k], o[k], v[k], tgt, pmove, light, din, dout);
 }
 
-// ---- CTA-wide building blocks (blockDim.x == TILE) ----------------------
-
-// Segmented inclusive scan of (f, v) over the CTA, f marking a segment's
-// head: on return v is the sum from the last head at or before this thread
-// and f whether there was one. sf / sv (32 each) end holding the warps'
-// inclusive results, so sf[31] / sv[31] is the CTA's aggregate.
-__device__ void cta_seg_scan(bool& f, int& v, int* sf, int* sv) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int pv = __shfl_up_sync(FULL_MASK, v, off);
-    const bool pf = __shfl_up_sync(FULL_MASK, (int)f, off);
-    if (lane >= off) {
-      if (!f) v = wadd(v, pv);
-      f = f || pf;
-    }
-  }
-  if (lane == 31) { sf[warp] = f; sv[warp] = v; }
-  __syncthreads();
-  if (warp == 0) {
-    bool wf = sf[lane];
-    int wv = sv[lane];
-    for (int off = 1; off < 32; off <<= 1) {
-      const int pv = __shfl_up_sync(FULL_MASK, wv, off);
-      const bool pf = __shfl_up_sync(FULL_MASK, (int)wf, off);
-      if (lane >= off) {
-        if (!wf) wv = wadd(wv, pv);
-        wf = wf || pf;
-      }
-    }
-    sf[lane] = wf; sv[lane] = wv;
-  }
-  __syncthreads();
-  if (warp > 0) {
-    if (!f) v = wadd(v, sv[warp - 1]);
-    f = f || sf[warp - 1];
-  }
-}
-
-// Exclusive prefix sum of x over threads 0..255 (other threads get junk).
-__device__ int excl_scan_256(int x, int* s_w) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int v = x;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int p = __shfl_up_sync(FULL_MASK, v, off);
-    if (lane >= off) v += p;
-  }
-  if (lane == 31 && warp < RADIX / 32) s_w[warp] = v;
-  __syncthreads();
-  int add = 0;
-  if (warp < RADIX / 32)
-    for (int w = 0; w < warp; ++w) add += s_w[w];
-  __syncthreads();
-  return add + v - x;
-}
-
-// Stable rank of this thread's digit d (-1: no key) among the CTA's keys
-// of that digit, in thread order; leaves the CTA's count of each digit in
-// cnt. wh holds 32 x RADIX per-warp counts (each at most 32, their
-// prefixes at most TILE: 16 bits suffice).
-__device__ int rank_in_tile(int d, unsigned short* wh, int* cnt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < 32 * RADIX; i += TILE) wh[i] = 0;
-  __syncthreads();
-  const unsigned peers = __match_any_sync(FULL_MASK, d);
-  const int wr = __popc(peers & ((1u << lane) - 1u));
-  if (d >= 0 && wr == 0) wh[warp * RADIX + d] = (unsigned short)__popc(peers);
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x < RADIX) {
-    for (int w = 0; w < 32; ++w) {
-      const int c = wh[w * RADIX + threadIdx.x];
-      wh[w * RADIX + threadIdx.x] = (unsigned short)total;
-      total += c;
-    }
-    cnt[threadIdx.x] = total;
-  }
-  __syncthreads();
-  return d >= 0 ? wh[warp * RADIX + d] + wr : 0;
-}
-
-// ---- decoupled look-back over the candidates kernel's tiles. A status
-// word is (tag << 32) | count: tag 0 (the zeroed scratch) not published
-// yet, 1 the tile's own count, 2 its inclusive prefix. -------------------
-
-__device__ __forceinline__ uint64_t vload(const uint64_t* p) {
-  return *(const volatile uint64_t*)p;
-}
-__device__ __forceinline__ void vstore(uint64_t* p, uint64_t x) {
-  *(volatile uint64_t*)p = x;
-  __threadfence();
-}
-__device__ __forceinline__ uint64_t status(unsigned tag, int payload) {
-  return ((uint64_t)tag << 32) | (uint32_t)payload;
-}
-
-// Exclusive prefix of the tiles' counts before this one; one thread a CTA.
-__device__ int lookback_sum(uint64_t* st, int tile, int agg) {
-  if (tile == 0) {
-    vstore(st, status(2u, agg));
-    return 0;
-  }
-  vstore(st + tile, status(1u, agg));
-  int excl = 0;
-  for (int q = tile - 1;; --q) {
-    uint64_t w;
-    do { w = vload(st + q); } while ((w >> 32) == 0);
-    excl += (int)(uint32_t)w;
-    if ((w >> 32) == 2u) break;
-  }
-  vstore(st + tile, status(2u, excl + agg));
-  return excl;
-}
-
 // ---- phase B -----------------------------------------------------------
 
-__device__ __forceinline__ int digit(uint64_t k, int pass) {
-  return (int)((k >> (8 * pass)) & (RADIX - 1));
-}
 
 // newcw, moved, movedin per row; the candidates compacted in row order
 // into (ckey, crow), their count into ctr[C_COUNT], every pass's digit

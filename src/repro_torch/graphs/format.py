@@ -114,8 +114,7 @@ def from_coo(n: int,
         src, dst, eweights = src[order], dst[order], eweights[order]
 
     indptr = np.zeros(n + 1, dtype=np.int64)
-    np.add.at(indptr, src + 1, 1)
-    indptr = np.cumsum(indptr)
+    indptr[1:] = np.cumsum(np.bincount(src, minlength=n))
     if vweights is None:
         vweights = np.ones(n, dtype=np.int64)
     else:
@@ -132,12 +131,14 @@ def permute(g: Graph, perm: np.ndarray) -> Tuple[Graph, np.ndarray]:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(g.n, dtype=perm.dtype)
     src = g.arc_tails()
-    new_src = perm[src]
-    new_dst = perm[g.adjncy]
-    order = np.lexsort((new_dst, new_src))
+    new_src = perm[src].astype(np.int64)
+    new_dst = perm[g.adjncy].astype(np.int64)
+    # the (new_src, new_dst) lexicographic order, as one stable sort of an
+    # int64 key (exact for n < 2^31; several times faster than lexsort)
+    order = np.argsort(new_src * g.n + new_dst, kind="stable")
     indptr = np.zeros(g.n + 1, dtype=np.int64)
-    np.add.at(indptr, new_src + 1, 1)
-    g2 = Graph(indptr=np.cumsum(indptr),
+    indptr[1:] = np.cumsum(np.bincount(new_src, minlength=g.n))
+    g2 = Graph(indptr=indptr,
                adjncy=new_dst[order].astype(g.adjncy.dtype),
                eweights=g.eweights[order],
                vweights=g.vweights[inv])

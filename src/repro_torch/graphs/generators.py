@@ -135,6 +135,21 @@ def random_regular_ish(n: int, deg: int, seed: int = 0) -> Graph:
     return from_coo(n, np.concatenate(srcs), np.concatenate(dsts))
 
 
+def weighted_variant(g: Graph, seed: int = 0,
+                     max_vw: int = 8, max_ew: int = 8) -> Graph:
+    """Attach random integer vertex/edge weights (for weighted-instance tests)."""
+    rng = np.random.default_rng(seed)
+    src = g.arc_tails()
+    # symmetric edge weights: hash the unordered pair
+    lo = np.minimum(src, g.adjncy)
+    hi = np.maximum(src, g.adjncy)
+    ew = (np.asarray(lo, np.uint64) * np.uint64(2654435761)
+          ^ np.asarray(hi, np.uint64) * np.uint64(40503)) % np.uint64(max_ew) + np.uint64(1)
+    vw = rng.integers(1, max_vw + 1, size=g.n)
+    return Graph(indptr=g.indptr, adjncy=g.adjncy,
+                 eweights=ew.astype(np.int64), vweights=vw.astype(np.int64))
+
+
 _FAMILIES = {
     "rgg2d": lambda n, d, s: rgg2d(n, d, s),
     "rgg3d": lambda n, d, s: rgg3d(n, d, s),

@@ -130,16 +130,6 @@ def check(err: int, what: str) -> None:
                            f"cudaError_t {err}")
 
 
-# seg_merge's bitonic sort (csrc/common.cuh) runs over a power-of-two
-# length and indexes it with 32-bit offsets
-MAX_SORT_LENGTH = 2**30
-
-
-def sort_length(n: int) -> int:
-    """``n`` rounded up to the sort's power-of-two length (at least 2)."""
-    return max(2, 1 << max(0, int(n) - 1).bit_length())
-
-
 P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint32

@@ -7,48 +7,65 @@ a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
 from .. import _build
-from .ref import seg_merge_ref
+from .ref import key_bits, seg_merge_ref
 
 I32_MAX = int(np.iinfo(np.int32).max)
+# int32 record offsets
+MAX_RECORDS = 2**31 - 1
 
-_SIG = {"seg_merge": [_build.P] * 3 + [_build.I] + [_build.P] * 12}
+_SIG = {"seg_merge": [_build.P] * 3 + [_build.I] * 2 + [_build.P] * 6,
+        "seg_merge_scratch_bytes": [_build.I, _build.P]}
 
 
-def seg_merge(src, dst, w):
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(L: int) -> int:
+    """Bytes of scratch the kernel needs for L records."""
+    lib = _build.load("seg_merge", _SIG)
+    n = ctypes.c_int64()
+    _build.check(lib.seg_merge_scratch_bytes(L, ctypes.addressof(n)),
+                 "seg_merge")
+    return n.value
+
+
+def seg_merge(src, dst, w, max_id=None):
     """Sort + merge (L,) int32 records. Returns ``(s_src, s_dst, tot,
     first)``: sorted keys, per-record run totals, int32 run-start flags.
-    Pads to a power of two internally with the ``I32_MAX`` invalid key
-    callers already filter, as the JAX kernel does."""
+
+    ``max_id`` bounds the ids: every ``src`` / ``dst`` is ``I32_MAX`` (an
+    invalid record) or lies in [0, max_id], and the sort key narrows to
+    what they need. ``None`` takes any int32 id, negatives included. The
+    bound is the caller's promise; nothing reads the ids back to check
+    it."""
     if src.device.type == "cpu":
-        return seg_merge_ref(src, dst, w)
+        return seg_merge_ref(src, dst, w, max_id)
     if src.device.type != "cuda":
         raise ValueError(f"seg_merge: unsupported device {src.device}")
     (L,) = src.shape
     for name, t in (("src", src), ("dst", dst), ("w", w)):
         _build.require(f"seg_merge {name}", t, torch.int32, (L,), src.device)
-    Lp = _build.sort_length(L)
-    if Lp > _build.MAX_SORT_LENGTH:
-        raise ValueError(f"seg_merge: {L} records exceed the launch limit")
-    if Lp != L:
-        pad = Lp - L
-        src = torch.cat([src, src.new_full((pad,), I32_MAX)])
-        dst = torch.cat([dst, dst.new_full((pad,), I32_MAX)])
-        w = torch.cat([w, w.new_zeros(pad)])
+    if L > MAX_RECORDS:
+        raise ValueError(f"seg_merge: {L} records exceed the launch limit "
+                         f"{MAX_RECORDS} (int32 offsets)")
+    bits = key_bits(max_id)
+    out = torch.empty((4, L), dtype=torch.int32, device=src.device)
+    if L == 0:
+        return out[0], out[1], out[2], out[3]
     lib = _build.load("seg_merge", _SIG)
-    i32 = dict(dtype=torch.int32, device=src.device)
-    out = torch.empty(4, Lp, **i32)
-    key = torch.empty(Lp, dtype=torch.int64, device=src.device)
-    scratch = torch.empty(4, Lp, **i32)
-    flags = torch.empty(3, Lp, dtype=torch.uint8, device=src.device)
+    # the kernel's scratch, one allocation apart from the outputs so that
+    # they do not keep it alive (the kernel clears what it needs cleared)
+    scratch = torch.empty(_scratch_bytes(L), dtype=torch.uint8,
+                          device=src.device)
     p = _build.ptr
-    err = lib.seg_merge(
-        p(src), p(dst), p(w), Lp, p(out[0]), p(out[1]), p(out[2]), p(out[3]),
-        p(key), p(scratch[0]), p(scratch[1]), p(scratch[2]), p(scratch[3]),
-        p(flags[0]), p(flags[2]), _build.stream_of(src))
+    err = lib.seg_merge(p(src), p(dst), p(w), L, bits, p(out[0]), p(out[1]),
+                        p(out[2]), p(out[3]), p(scratch),
+                        _build.stream_of(src))
     _build.check(err, "seg_merge")
     _build.count_launch("seg_merge")
-    return out[0, :L], out[1, :L], out[2, :L], out[3, :L]
+    return out[0], out[1], out[2], out[3]

@@ -21,10 +21,12 @@ from repro.core import initial_partition as ref_ip  # noqa: E402
 from repro.core import lp as ref_lp  # noqa: E402
 from repro.core import metrics as ref_metrics  # noqa: E402
 from repro.core import refinement as ref_refinement  # noqa: E402
+from repro.graphs import format as ref_format  # noqa: E402
 from repro.graphs import generators as ref_generators  # noqa: E402
 from repro_torch import carry  # noqa: E402
 from repro_torch.core import balance, coarsening, contraction  # noqa: E402
 from repro_torch.core import initial_partition, lp, refinement  # noqa: E402
+from repro_torch.graphs import format as graph_format  # noqa: E402
 from repro_torch.graphs import generators  # noqa: E402
 from repro_torch.kernels.lp_move import ops as move_ops  # noqa: E402
 
@@ -48,6 +50,56 @@ def test_port_generators_match_reference(family, n):
     h = generators.make(family, n, 8.0, seed=3)
     for name in ("indptr", "adjncy", "eweights", "vweights"):
         np.testing.assert_array_equal(getattr(h, name), getattr(g, name))
+
+
+def test_weighted_variant_matches_reference():
+    g = ref_generators.make("rgg2d", 700, 8.0, seed=4)
+    h = carry.graph_from_arrays(g.indptr, g.adjncy, g.eweights, g.vweights)
+    want = ref_generators.weighted_variant(g, seed=9)
+    got = generators.weighted_variant(h, seed=9)
+    for name in ("indptr", "adjncy", "eweights", "vweights"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert got.eweights.max() > 1 and got.vweights.max() > 1
+
+
+@pytest.mark.parametrize("family,n", [("rgg2d", 4000), ("ba", 3000),
+                                      ("weighted", 2500)])
+def test_permute_and_from_coo_match_reference(family, n):
+    """The port's permute (one stable int64-key argsort, bincount degrees)
+    and from_coo (bincount degrees) against the reference's (lexsort,
+    np.add.at), bit for bit, under seeded random permutations."""
+    g = ref_generators.make("rgg2d" if family == "weighted" else family, n,
+                            8.0, seed=6)
+    if family == "weighted":
+        g = ref_generators.weighted_variant(g, seed=6)
+    h = carry.graph_from_arrays(g.indptr, g.adjncy, g.eweights, g.vweights)
+    rng = np.random.default_rng(n)
+    names = ("indptr", "adjncy", "eweights", "vweights")
+    for _ in range(3):
+        perm = rng.permutation(g.n)
+        want, want_inv = ref_format.permute(g, perm)
+        got, got_inv = graph_format.permute(h, perm)
+        np.testing.assert_array_equal(got_inv, want_inv)
+        for name in names:
+            a, b = getattr(got, name), getattr(want, name)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    src, dst = g.arc_tails(), np.asarray(g.adjncy)
+    half = src < dst
+    for sym, dedup, (s_, d_) in ((True, True, (src[half], dst[half])),
+                                 (False, False, (src, dst)),
+                                 (False, True, (dst, src))):
+        w = g.eweights[half] if sym else g.eweights
+        want = ref_format.from_coo(g.n, s_, d_, eweights=w,
+                                   vweights=g.vweights, symmetrize=sym,
+                                   dedup=dedup)
+        got = graph_format.from_coo(g.n, s_, d_, eweights=w,
+                                    vweights=g.vweights, symmetrize=sym,
+                                    dedup=dedup)
+        for name in names:
+            a, b = getattr(got, name), getattr(want, name)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
 
 
 def _cluster_state(g, num_chunks=4):

@@ -8,7 +8,13 @@ records apart from wall times. Under ``kernel="fused"`` the port runs the
 plain versions of its CUDA kernels, so this also covers the fused wiring.
 
 * the anchor: rgg2d n=4000, k=16, eps=0.03, benchmark config — cut 819;
-* ba n=4000 (max degree 236): the hub-heavy family — cut 9978.
+* ba n=4000 (max degree 236): the hub-heavy family — cut 9978;
+* weighted rgg2d n=3000, k=16 (the reference's ``weighted_variant``):
+  contraction merges arcs of weight above 1, so ``seg_merge`` sums them;
+* rgg2d n=6000, k=256, C=32: many blocks, deep recursive bisection.
+
+The ``auto`` backend policy is the reference's; a request it sends to a
+distributed backend raises, since the port has none yet.
 """
 import dataclasses
 
@@ -19,9 +25,11 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro import api as ref_api  # noqa: E402
+from repro.api import backends as ref_backends  # noqa: E402
 from repro.core.deep_mgp import PartitionerConfig as RefConfig  # noqa: E402
 from repro.graphs import generators as ref_generators  # noqa: E402
 from repro_torch import api, carry  # noqa: E402
+from repro_torch.api import backends  # noqa: E402
 from repro_torch.core import deep_mgp, metrics  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
@@ -68,6 +76,81 @@ def test_single_backend_is_bit_identical(reference_runs, family, kernel):
     assert _strip(res.trace) == _strip(ref.trace)
     assert [r["phase"] for r in res.trace][-1] == "final"
     assert _build.LAUNCHES == launches          # CPU: plain versions only
+
+
+# name -> (family, n, k, weighted, config fields)
+MORE_CASES = {
+    "weighted_rgg2d_3000_k16": ("rgg2d", 3000, 16, True,
+                                dataclasses.asdict(BENCH_CONFIG)),
+    "rgg2d_6000_k256_c32": ("rgg2d", 6000, 256, False,
+                            dict(contraction_limit=32)),
+}
+
+
+@pytest.fixture(scope="module")
+def more_reference_runs():
+    out = {}
+    for name, (family, n, k, weighted, fields) in MORE_CASES.items():
+        g = ref_generators.make(family, n, 8.0, seed=17)
+        if weighted:
+            g = ref_generators.weighted_variant(g, seed=17)
+        res = ref_api.Partitioner(backend="single").run(
+            ref_api.PartitionRequest(graph=g, k=k, epsilon=0.03,
+                                     config=RefConfig(**fields)))
+        out[name] = (g, res)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["composed", "fused"])
+@pytest.mark.parametrize("name", sorted(MORE_CASES))
+def test_single_backend_is_bit_identical_on_more_instances(
+        more_reference_runs, name, kernel):
+    g, ref = more_reference_runs[name]
+    _, _, k, weighted, fields = MORE_CASES[name]
+    assert ref.feasible
+    if weighted:
+        assert g.eweights.max() > 1 and g.vweights.max() > 1
+    h = carry.graph_from_arrays(g.indptr, g.adjncy, g.eweights, g.vweights)
+    cfg = carry.config_from_dict(dataclasses.asdict(RefConfig(**fields)))
+    res = api.Partitioner(backend="single", device="cpu").run(
+        api.PartitionRequest(graph=h, k=k, epsilon=0.03, config=cfg,
+                             kernel=kernel))
+    np.testing.assert_array_equal(res.assignment, ref.assignment)
+    assert res.metrics == ref.metrics and res.feasible
+    assert _strip(res.trace) == _strip(ref.trace)
+
+
+class _Req:
+    def __init__(self, devices, backend="auto"):
+        self.devices, self.backend = devices, backend
+
+
+@pytest.mark.parametrize("devices", [1, 2, 4, 16, 32])
+def test_auto_backend_policy_matches_reference(devices):
+    threshold = backends.MIN_VERTICES_PER_DEVICE * devices
+    assert threshold == ref_backends.MIN_VERTICES_PER_DEVICE * devices
+    for n in (1, threshold - 1, threshold, threshold + 1, 10**6):
+        for backend in ("auto", "single"):
+            req = _Req(devices, backend)
+            assert backends.resolve_backend(req, n) == \
+                ref_backends.resolve_backend(req, n)
+    want = ("single" if devices == 1 else
+            "dist-grid" if devices >= 16 else "dist")
+    assert backends.resolve_backend(_Req(devices), threshold) == want
+
+
+def test_request_the_policy_sends_to_dist_raises():
+    """Two devices and 2000 vertices: the reference's policy picks
+    ``dist``; the port raises instead of running ``single`` (which gave
+    cut 194 before the policy was mirrored)."""
+    req = api.PartitionRequest(graph=api.GraphSpec("rgg2d", 2000, 8.0,
+                                                   seed=1),
+                               k=4, devices=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        api.Partitioner(device="cpu").run(req)
+    for name in ("dist", "dist-grid"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            backends.get_backend(name)
 
 
 def test_config_carries_every_reference_field():

@@ -22,6 +22,8 @@ same ``max(vw, 1)`` and do one IEEE multiply or divide on it, so there is
 no rounding to differ. The kernels themselves run only on a GPU: the
 ``gpu`` tests hold each one to its plain version there.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -182,27 +184,84 @@ def test_lp_move_plain_matches_reference_on_phase_b_stress(kind, R, fit_sum):
 # ---------------------------------------------------------------------------
 
 def _records(seed, L, ids):
-    rng = np.random.default_rng(seed)
-    src = rng.integers(0, ids, L).astype(np.int32)
-    dst = rng.integers(0, ids, L).astype(np.int32)
-    w = rng.integers(1, 9, L).astype(np.int32)
-    pad = rng.random(L) < 0.2
-    src[pad] = dst[pad] = I32_MAX
-    w[pad] = 0
-    return src, dst, w
+    """Seeded (src, dst, w) records. An int ``seed`` gives ids below
+    ``ids`` with a fifth invalid (I32_MAX, w=0); a named case loads one
+    corner of the radix-sort design. Returns (src, dst, w, max_id), with
+    max_id the bound a caller may pass (None: negative ids)."""
+    rng = np.random.default_rng(seed if isinstance(seed, int) else L)
+    src = rng.integers(0, ids, L)
+    dst = rng.integers(0, ids, L)
+    w = rng.integers(1, 9, L)
+    if seed == "width":          # a max id of 2^7 - 1 needs 8 bits
+        src[:3] = dst[3:5] = ids - 1
+    elif seed == "one_half":     # I32_MAX in src only, or in dst only
+        src[rng.random(L) < 0.2] = I32_MAX
+        dst[rng.random(L) < 0.2] = I32_MAX
+    elif seed == "negative":     # any int32: no bound, 32-bit halves
+        src -= ids // 2
+        dst -= ids // 2
+        src[:4] = I32_MAX
+    elif seed == "long_run":     # one key repeated beyond a tile
+        src[:5000] = 7
+        dst[:5000] = 3
+        rng.shuffle(src)
+        dst[src == 7] = 3
+    elif seed == "all_invalid":
+        src[:] = dst[:] = I32_MAX
+        w[:] = 0
+    elif seed == "wrap":         # run totals that wrap int32
+        w = rng.integers(2**29, 2**30, L)
+    elif seed == "full_width":   # ids near the top of int32
+        src = I32_MAX - 1 - rng.integers(0, ids, L)
+        dst = I32_MAX - 1 - rng.integers(0, ids, L)
+    if isinstance(seed, int) or seed == "pow2_miss":
+        pad = rng.random(L) < 0.2
+        src[pad] = dst[pad] = I32_MAX
+        w[pad] = 0
+    valid = np.concatenate([src[src != I32_MAX], dst[dst != I32_MAX]])
+    if valid.size and valid.min() < 0:
+        max_id = None
+    else:
+        max_id = int(valid.max()) if valid.size else 0
+    return (src.astype(np.int32), dst.astype(np.int32), w.astype(np.int32),
+            max_id)
 
 
-@pytest.mark.parametrize("seed,L,ids", [(0, 256, 6), (1, 200, 30),
-                                        (2, 5, 2), (3, 1, 3)])
+SEG_CASES = [(0, 256, 6), (1, 200, 30), (2, 5, 2), (3, 1, 3),
+             ("pow2_miss", 1000, 50), ("width", 300, 128),
+             ("one_half", 500, 40), ("negative", 700, 60),
+             ("long_run", 6000, 20), ("all_invalid", 777, 1),
+             ("wrap", 2000, 10), ("full_width", 600, 40)]
+
+
+@pytest.mark.parametrize("seed,L,ids", SEG_CASES)
 def test_seg_merge_plain_matches_pallas_and_oracle(seed, L, ids):
-    src, dst, w = _records(seed, L, ids)
-    got = seg_merge.seg_merge(t32(src), t32(dst), t32(w))
-    pallas = ref_seg.seg_merge(src, dst, w, interpret=True)
-    oracle = ref_seg_ref.seg_merge_ref(jnp.asarray(src), jnp.asarray(dst),
-                                       jnp.asarray(w))
-    for a, b, c in zip(got, pallas, oracle):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    """The plain version, with the ids' bound (the narrowed key) and
+    without (32-bit halves), against the JAX composed oracle, and against
+    the Pallas kernel in interpret mode up to 4096 records."""
+    src, dst, w, max_id = _records(seed, L, ids)
+    if seed == "width":
+        assert seg_merge.key_bits(max_id) == 8
+    wants = [ref_seg_ref.seg_merge_ref(jnp.asarray(src), jnp.asarray(dst),
+                                       jnp.asarray(w))]
+    if L <= 4096:
+        wants.append(ref_seg.seg_merge(src, dst, w, interpret=True))
+    for bound in {max_id, None}:
+        got = seg_merge.seg_merge(t32(src), t32(dst), t32(w), max_id=bound)
+        for want in wants:
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_key_bits_leave_room_for_the_invalid_id():
+    """bit_length(max_id + 1): the all-ones value of a half stays above
+    every valid id; without a bound the halves are 32 bits wide."""
+    kb = seg_merge.key_bits
+    assert [kb(0), kb(1), kb(126), kb(127), kb(2**19 - 1)] == [1, 2, 7, 8, 20]
+    assert kb(None) == 32 and kb(I32_MAX - 1) == 31
+    for bad in (-1, I32_MAX):
+        with pytest.raises(ValueError, match="max_id"):
+            kb(bad)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -228,6 +287,18 @@ def test_dedup_fit_check_keeps_int32_limits_only():
     assert not seg_ops.dedup_fits(a, a, np.array([2**30, 2**30]))
     big = np.zeros(9 * 2**20, dtype=np.int64)   # far beyond any VMEM gate
     assert seg_ops.dedup_fits(big, big + 1, np.ones_like(big))
+
+
+def test_dedup_fit_check_keeps_the_record_limit(monkeypatch):
+    """Beyond the kernel's int32 record offsets the fused dedup does not
+    fit (and raises); nothing pads the records any more."""
+    a = np.arange(12, dtype=np.int64)
+    assert seg_ops.dedup_fits(a, a[::-1], np.ones_like(a))
+    monkeypatch.setattr(seg_ops, "MAX_RECORDS", 11)
+    assert not seg_ops.dedup_fits(a, a[::-1], np.ones_like(a))
+    with pytest.raises(ValueError, match="int32"):
+        seg_ops.dedup_arcs_fused(a, a[::-1], np.ones_like(a),
+                                 torch.device("cpu"))
 
 
 def test_fused_dedup_raises_outside_int32_instead_of_falling_back():
@@ -321,7 +392,7 @@ def test_greedy_pick_plain_matches_pallas_and_oracle(seed, M, K):
 
 def _small_calls(device):
     nlab, nw, ncw, _, own, vw, v0, salt, nl, W = _move_inputs(9, R=8, D=4)
-    src, dst, w = _records(9, 16, 4)
+    src, dst, w, _ = _records(9, 16, 4)
     arrs, bsalt, _ = _bal_inputs(9, 4, False, R=8, D=4)
     vals = torch.zeros(4, dtype=torch.float32, device=device)
     i4 = torch.zeros(4, dtype=torch.int32, device=device)
@@ -341,6 +412,8 @@ def _small_calls(device):
             *(on(a) for a in st[:3]), on(st[4]), on(st[5]), st[9], st[6],
             st[7], st[8], nbud=on(st[3])),
         "seg_merge": lambda: seg_merge.seg_merge(on(src), on(dst), on(w)),
+        **{f"seg_merge_{case}": functools.partial(_seg_call, on, case, L, ids)
+           for case, L, ids in SEG_CASES[4:] + [("big", 2**22 + 1, 136674)]},
         "bal_scores": lambda: bal_round.bal_scores(
             *(on(a) for a in arrs), bsalt),
         "greedy_pick": lambda: bal_round.greedy_pick(vals, i4, i4, i4, i8,
@@ -358,12 +431,20 @@ def _small_calls(device):
     }
 
 
+def _seg_call(on, case, L, ids):
+    """seg_merge on a named case of ``_records``, with its bound; ``big``
+    is L = 2^22 + 1 records with the level-0 ids' width (18 bits)."""
+    src, dst, w, max_id = _records(case if case != "big" else 0, L, ids)
+    return seg_merge.seg_merge(on(src), on(dst), on(w), max_id=max_id)
+
+
 MICRO = ["lp_gain", "bsr_spmm", "embedding_bag"]
+SEG = [f"seg_merge_{case}" for case, _, _ in SEG_CASES[4:]]
 
 
 @pytest.mark.parametrize("kernel", ["lp_move", "lp_move_stress",
                                     "seg_merge", "bal_scores",
-                                    "greedy_pick"] + MICRO)
+                                    "greedy_pick"] + MICRO + SEG)
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
     before = dict(_build.LAUNCHES)
     out = _small_calls(torch.device("cpu"))[kernel]()
@@ -373,7 +454,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch(kernel):
 
 @pytest.mark.parametrize("kernel", ["lp_move", "lp_move_stress",
                                     "seg_merge", "bal_scores",
-                                    "greedy_pick"] + MICRO)
+                                    "greedy_pick"] + MICRO + SEG)
 def test_other_devices_raise_instead_of_falling_back(kernel):
     with pytest.raises(ValueError, match="unsupported device"):
         _small_calls(torch.device("meta"))[kernel]()
@@ -406,9 +487,11 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["lp_move", "lp_move_stress",
                                     "seg_merge", "bal_scores",
-                                    "greedy_pick"] + MICRO)
+                                    "greedy_pick"] + MICRO + SEG
+                         + ["seg_merge_big"])
 def test_kernel_matches_plain_version_on_gpu(kernel, cuda_device):
-    counter = kernel.removesuffix("_stress")
+    counter = ("seg_merge" if kernel.startswith("seg_merge")
+               else kernel.removesuffix("_stress"))
     before = _build.LAUNCHES[counter]
     got = _small_calls(cuda_device)[kernel]()
     torch.cuda.synchronize()
@@ -426,3 +509,14 @@ def test_lp_move_outputs_hold_no_scratch(cuda_device):
     assert moved.untyped_storage().data_ptr() == \
         tgt.untyped_storage().data_ptr()
     assert moved.untyped_storage().nbytes() == 8 * R
+
+
+@pytest.mark.gpu
+def test_seg_merge_outputs_hold_no_scratch(cuda_device):
+    out = _small_calls(cuda_device)["seg_merge_long_run"]()
+    L = out[0].shape[0]
+    # the four outputs share one 16 L-byte allocation, apart from the
+    # kernel's scratch
+    assert all(x.untyped_storage().data_ptr() ==
+               out[0].untyped_storage().data_ptr() for x in out)
+    assert out[0].untyped_storage().nbytes() == 16 * L
