@@ -13,7 +13,9 @@ exits non-zero if any one fails:
      the torch/CUDA versions and the card's name and power limit;
   2. ragged kernel cases: every kernel against its plain PyTorch version
      on small edge-case inputs, exact equality (bsr_spmm, whose sums run
-     in another order, within rtol 1e-5 / atol 1e-5); lp_move also on
+     in another order, within rtol 1e-5 / atol 1e-5, its largest error
+     printed as a share of that allowance, its finite ragged shapes also
+     on eight more seeds); lp_move also on
      chunks that load its phase B (no candidate; every row a candidate to
      one target, R = 4,500 and 70,001; candidates spread over ~2^21
      labels; -1 lanes anywhere in a row), each also timed beside its
@@ -21,7 +23,10 @@ exits non-zero if any one fails:
      boundary, I32_MAX in one half only, negative and full-width ids, one
      key over several tiles, all records invalid, wrapping run totals
      and L = 2^22 + 1; embedding_bag at D=64 with BAG 1, 4 and 17 and
-     B not a multiple of its bags per thread;
+     B not a multiple of its bags per thread; bsr_spmm with +-inf and NaN
+     in X (one inf met only by zero weights, which the plain version
+     turns into NaN), values beyond its TF32 split's range and an inf in
+     A; lp_gain on operands built by its entry point at 32 and 128 lanes;
   3. the anchor: rgg2d n=4000, k=16, eps=0.03 with the benchmark config
      (C=256, 4 chunks, 2 IP repetitions) must give cut 819, feasible,
      under ``kernel="fused"`` and ``kernel="composed"``;
@@ -53,7 +58,12 @@ exits non-zero if any one fails:
      just before and read just after each: ``lp_gain`` on the 2^20 graph
      with phase 4's assignment (labels, block weights, L_max), checked
      against an edge scan; ``spmm`` on grid2d 1024x1024 with F=128,
-     checked against a COO sum in f64; ``embedding_bag`` on one dlrm-rm2
+     checked against a COO sum in f64, with its device launches per call
+     (a captured CUDA graph), its device time and the share of all-zero
+     A sub-tiles it skips; lp_gain's lane
+     width, slab bytes, and its kernel and entry-point times at the
+     reference's 128 lanes beside its default 32 (the same bits);
+     ``embedding_bag`` on one dlrm-rm2
      table (V=10^6, D=64, B=65,536, BAG 1 and 4), checked against a
      sequential numpy sum. Each kernel is held to its plain version on
      the inputs its entry point gave it (exact; bsr_spmm within rtol
@@ -370,26 +380,37 @@ def micro_ragged_cases(torch, rng, dev):
         cases.append(("lp_gain", functools.partial(lp_gain.lp_gain_ell,
                                                    row_tile=tile),
                       gain_ref.lp_gain_ell_ref, args, {}))
-    g = generators.make("ba", 20000, 8.0, seed=5)    # a hub beyond 512
-    labels = rng.integers(0, 8, g.n)
-    cw = np.bincount(labels, weights=g.vweights, minlength=8)
-    args = gain_ops.gain_operands(g, labels, cw, float(cw.max() - 20), 256,
-                                  dev)
-    cases.append(("lp_gain", lp_gain.lp_gain_ell, gain_ref.lp_gain_ell_ref,
-                  args, {}))
-    for rb, nnz, bs, f in ((3, 2, 128, 1), (4, 3, 128, 130), (5, 1, 128, 64),
-                           (3, 2, 64, 96)):
-        col = rng.integers(0, rb, rb * nnz)
-        vals = rng.random((rb * nnz, bs, bs)) * \
-            (rng.random((rb * nnz, bs, bs)) < 0.05)
-        pad = (np.arange(rb * nnz) % nnz == nnz - 1) & (rng.random(rb * nnz)
-                                                         < 0.5)
-        col[pad] = 0                                 # zero padded blocks
-        vals[pad] = 0.0
-        x = rng.standard_normal((rb * bs, f))
+    # the entry point's operands at both lane widths: a hub beyond 512
+    # (D = 512 either way), a max degree of 139 (D = 160 against 256) and
+    # a max degree near 20 (D = 32 against 128)
+    for family, n, seed in (("ba", 20000, 5), ("ba", 1000, 2),
+                            ("rgg2d", 5000, 3)):
+        g = generators.make(family, n, 8.0, seed=seed)
+        labels = rng.integers(0, 8, g.n)
+        cw = np.bincount(labels, weights=g.vweights, minlength=8)
+        for lanes in (32, 128):
+            args = gain_ops.gain_operands(g, labels, cw,
+                                          float(cw.max() - 20), 256, dev,
+                                          lanes)
+            cases.append(("lp_gain", lp_gain.lp_gain_ell,
+                          gain_ref.lp_gain_ell_ref, args, {},
+                          f"{family} {n} via gain_operands, lanes {lanes}"))
+    for rb, nnz, bs, f in BSR_RAGGED:
+        col, vals, x = bsr_random(rng, rb, nnz, bs, f)
         cases.append(("bsr_spmm", bsr_spmm.bsr_spmm, bsr_ref.bsr_spmm_ref,
                       (_i32(torch, col, dev), f32(vals), f32(x)),
                       dict(block_rows=rb, nnz_per_row=nnz)))
+    for rb, nnz, bs, f, kind in ((4, 3, 128, 128, "scattered"),
+                                 (3, 2, 128, 130, "scattered"),
+                                 (5, 2, 64, 1, "scattered"),
+                                 (4, 2, 128, 128, "zero_weights"),
+                                 (3, 3, 99, 36, "zero_weights"),
+                                 (3, 2, 128, 64, "beyond_split")):
+        col, vals, x = bsr_non_finite(rng, rb, nnz, bs, f, kind)
+        cases.append(("bsr_spmm", bsr_spmm.bsr_spmm, bsr_ref.bsr_spmm_ref,
+                      (_i32(torch, col, dev), f32(vals), f32(x)),
+                      dict(block_rows=rb, nnz_per_row=nnz),
+                      f"non-finite: {kind}"))
     for B, bag, V, D in ((32, 1, 500, 64), (33, 3, 100, 200), (5, 3, 10, 1),
                          (9, 3, 4, 64), (1, 1, 1, 4), (1001, 1, 5000, 64),
                          (4099, 4, 5000, 64), (333, 17, 2000, 64),
@@ -403,16 +424,72 @@ def micro_ragged_cases(torch, rng, dev):
     return cases
 
 
+# bsr_spmm's ragged shapes (block rows, slots a row, block size, F): F = 1
+# and 130, one slot a row, a block size below 128
+BSR_RAGGED = ((3, 2, 128, 1), (4, 3, 128, 130), (5, 1, 128, 64),
+              (3, 2, 64, 96))
+
+
+def bsr_random(rng, rb, nnz, bs, f):
+    """(col, vals, x) of a bsr_spmm case: blocks 5% dense with values in
+    [0, 1), about half the last slots of the rows padded (column block 0,
+    all zero), X standard normal."""
+    col = rng.integers(0, rb, rb * nnz)
+    vals = rng.random((rb * nnz, bs, bs)) * \
+        (rng.random((rb * nnz, bs, bs)) < 0.05)
+    pad = (np.arange(rb * nnz) % nnz == nnz - 1) & (rng.random(rb * nnz)
+                                                     < 0.5)
+    col[pad] = 0                                     # zero padded blocks
+    vals[pad] = 0.0
+    x = rng.standard_normal((rb * bs, f))
+    return col, vals, x
+
+
+def bsr_non_finite(rng, rb, nnz, bs, f, kind):
+    """(col, vals, x) of a bsr_spmm case whose values the kernel's TF32
+    split cannot take. ``scattered``: +inf, -inf and NaN among the rows of
+    X, one +inf in column block 0, which the padded all-zero slots
+    multiply (0 x inf: NaN in the plain version). ``zero_weights``: a row
+    of X all +inf that every block on its column block multiplies by
+    zeros only, so it reaches Y as NaN and nowhere as inf. ``beyond_split``:
+    finite values beyond 2^60 in X and A, and +inf in A."""
+    col = rng.integers(0, rb, rb * nnz)
+    vals = rng.random((rb * nnz, bs, bs)) * \
+        (rng.random((rb * nnz, bs, bs)) < 0.05)
+    pad = np.arange(rb * nnz) % nnz == nnz - 1
+    col[pad] = 0
+    vals[pad] = 0.0
+    x = rng.standard_normal((rb * bs, f))
+    if kind == "scattered":
+        for v in (np.inf, -np.inf, np.nan):
+            x[rng.integers(0, rb * bs, 2), rng.integers(0, f, 2)] = v
+        x[rng.integers(0, bs), rng.integers(0, f)] = np.inf
+    elif kind == "zero_weights":
+        c, k = rb - 1, int(rng.integers(0, bs))
+        col[0] = c
+        x[c * bs + k] = np.inf
+        vals[col == c, :, k] = 0.0
+    else:
+        x[rng.integers(0, rb * bs, 3), rng.integers(0, f, 3)] = 2.0**61
+        x[rng.integers(0, rb * bs), rng.integers(0, f)] = -1e36
+        vals[0, rng.integers(0, bs, 4), rng.integers(0, bs, 4)] = 3.0**40
+        vals[1, rng.integers(0, bs), rng.integers(0, bs)] = np.inf
+    return col, vals, x
+
+
 def compare(name, got, want):
-    """(max abs err, max rel err) of the kernel's outputs against the
-    plain version's (0.0 iff bit-identical; equal infinities count as
+    """(max abs err, max rel err, share) of the kernel's outputs against
+    the plain version's (0.0 iff bit-identical; equal infinities count as
     equal, a NaN on one side only as inf; the relative error is taken
-    where the plain value is not 0); fails unless they are within the
-    kernel's TOLERANCE, or equal where it has none."""
+    where the plain value is not 0; share: the largest error over its
+    allowance atol + rtol |plain|, None where the kernel has no
+    TOLERANCE); fails unless they are within the kernel's TOLERANCE, or
+    equal where it has none."""
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
     rtol, atol = TOLERANCE.get(name, (0.0, 0.0))
     err = rel = 0.0
+    share = 0.0 if rtol or atol else None
     for a, b in zip(got, want):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{name}: output shape/dtype {tuple(a.shape)}/{a.dtype} vs "
@@ -430,10 +507,42 @@ def compare(name, got, want):
         if bool(nz.any()):
             rel = max(rel, float((d[nz] / db[nz].abs())
                                  .nan_to_num(nan=inf, posinf=inf).max()))
-        check(bool((d <= atol + rtol * db.abs()).all()),
+        allow = atol + rtol * db.abs()
+        check(bool((d <= allow).all()),
               f"{name}: kernel != plain beyond rtol {rtol} / atol {atol}, "
               f"max abs err {err}")
-    return err, rel
+        if share is not None:
+            share = max(share, float((d / allow).max()))
+    return err, rel, share
+
+
+def share_text(share) -> str:
+    return "" if share is None else f", {share:.4f} of its allowance"
+
+
+def bsr_spmm_seeds(torch, dev, seeds=range(1, 9)):
+    """bsr_spmm's finite ragged shapes on more seeds: the largest error
+    over its allowance (1e-5 + 1e-5 |plain|) of each shape across them."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, ref as bsr_ref
+
+    for rb, nnz, bs, f in BSR_RAGGED:
+        worst = (0.0, 0.0)
+        for seed in seeds:
+            col, vals, x = bsr_random(np.random.default_rng(seed), rb, nnz,
+                                      bs, f)
+            args = [torch.from_numpy(np.ascontiguousarray(a, dtype=t)).to(dev)
+                    for a, t in ((col, np.int32), (vals, np.float32),
+                                 (x, np.float32))]
+            kw = dict(block_rows=rb, nnz_per_row=nnz)
+            got = bsr_spmm.bsr_spmm(*args, **kw)
+            torch.cuda.synchronize()
+            err, _, share = compare("bsr_spmm", got,
+                                    bsr_ref.bsr_spmm_ref(*args, **kw))
+            worst = max(worst, (share, err))
+        say(f"  bsr_spmm {(rb * nnz, bs, bs)} F={f} on seeds "
+            f"{seeds.start}..{seeds.stop - 1}: {tolerance_text('bsr_spmm')} "
+            f"(worst {worst[0]:.4f} of its allowance, max abs err "
+            f"{worst[1]})")
 
 
 def tolerance_text(name) -> str:
@@ -449,7 +558,7 @@ def phase_ragged(torch, dev):
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         want = plain(*args, **kw)
-        err, _ = compare(name, got, want)
+        err, _, share = compare(name, got, want)
         shape = tuple(args[0].shape)
         timed = ""
         if what and name == "lp_move":   # phase-B chunks: candidates, time
@@ -457,7 +566,9 @@ def phase_ragged(torch, dev):
             timed = (f"; {int(candidate_count(args, kw))} candidates, "
                      f"kernel {ms:.4f} ms")
         say(f"  {name} {shape}{''.join(' ' + w for w in what)}: "
-            f"{tolerance_text(name)} (max abs err {err}){timed}")
+            f"{tolerance_text(name)} (max abs err {err}"
+            f"{share_text(share)}){timed}")
+    bsr_spmm_seeds(torch, dev)
 
 
 def candidate_count(args, kw):
@@ -1011,7 +1122,7 @@ def held_and_timed(torch, name, fn, plain, args, kw, reps, launches,
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
-    err, rel = compare(name, got, want)
+    err, rel, share = compare(name, got, want)
     del want
     shape = [tuple(t.shape) for t in args if hasattr(t, "shape")]
     sets = rotate or [args]
@@ -1024,7 +1135,8 @@ def held_and_timed(torch, name, fn, plain, args, kw, reps, launches,
     lib = ("n/a" if library is None else
            f"{lib_ms:.4f} ms" if lib_err is None else lib_err)
     say(f"  {name} {' '.join(map(str, shape))}: {tolerance_text(name)} "
-        f"(max abs err {err}, max rel err {rel}); kernel {ms:.4f} ms, "
+        f"(max abs err {err}, max rel err {rel}{share_text(share)}); "
+        f"kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"library {lib}")
     src, replaces = KERNELS[name]
@@ -1033,6 +1145,8 @@ def held_and_timed(torch, name, fn, plain, args, kw, reps, launches,
            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "shape": [list(t) for t in shape]}
+    if share is not None:
+        row["allowance_share"] = share
     if lib_err is not None:
         row["library_error"] = lib_err
     return row
@@ -1096,6 +1210,69 @@ def edge_scan_gain(g, labels, cw, budget, k):
     target = np.where(best >= 0, score.argmax(1), -1)
     gain = best.astype(np.float32) - own.astype(np.float32)
     return gain, target.astype(np.int32), own.astype(np.float32)
+
+
+def lp_gain_lane_widths(torch, g, labels, cw, budget, fn, args, dev):
+    """The entry point's wall time and the kernel's time at 32 lanes (its
+    default) and at the reference's 128, on the same assignment: the
+    outputs must be the same bits. Each width's wall is timed three times,
+    the widths in turn with the first alternating (128, 32, 32, 128, 128,
+    32), and its median printed beside the three."""
+    from repro_torch.kernels.lp_gain import ops as gain_ops
+
+    walls = {128: [], 32: []}
+    for lanes in (128, 32, 32, 128, 128, 32):
+        t0 = time.perf_counter()
+        gain_ops.lp_gain(g, labels, cw, budget, lanes=lanes)
+        walls[lanes].append(time.perf_counter() - t0)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    wide = gain_ops.gain_operands(g, labels, cw, budget, 256, dev, lanes=128)
+    narrow_out, wide_out = fn(*args), fn(*wide)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(narrow_out, wide_out)),
+          "lp_gain: the 32-lane and 128-lane slabs give different outputs")
+    ms = cuda_ms(torch, lambda: fn(*wide), 20)
+    say(f"  lp_gain at 128 lanes (D={wide[0].shape[1]}, slabs "
+        f"{nbytes(*wide[:3])} bytes): the same bits; kernel {ms:.4f} ms; "
+        f"entry point wall, median of three, {med[128]:.3f} s "
+        f"({', '.join(f'{t:.3f}' for t in walls[128])}) against "
+        f"{med[32]:.3f} s at 32 lanes "
+        f"({', '.join(f'{t:.3f}' for t in walls[32])})")
+    del wide, narrow_out, wide_out
+
+
+def bsr_spmm_launches_and_times(torch, args, kw):
+    """bsr_spmm beyond its wrapper time, on phase 6's input: device
+    launches per call (nodes of a captured CUDA graph of the kernel's
+    launch path, which checks and reads back nothing), no stream wait,
+    the device time (CUDA events behind a sleep kernel) and the share of
+    16 x 8 A sub-tiles the kernel skips (X is finite here, so every
+    all-zero one). Every call reads its 3.7 GB of inputs from HBM: they
+    are 70 times the L2."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm as bsr_mod
+
+    col, vals, xp = args
+    rb, nnz = kw["block_rows"], kw["nnz_per_row"]
+    bs = vals.shape[1]
+    y = torch.empty(rb * bs, xp.shape[1], dtype=torch.float32,
+                    device=xp.device)
+    call = functools.partial(bsr_mod._launch, col, vals, xp, y, rb, nnz)
+    n = say_launches(torch, "bsr_spmm", call, f"at {rb} block rows x {nnz} "
+                     "slots")
+    check(n == 1, f"bsr_spmm: {n} device launches per call; expected 1")
+    no_stream_wait(torch, "bsr_spmm", call)
+    share = None
+    if bs == 128:
+        nz = vals.view(-1, 8, 16, 16, 8).ne(0).any(4).any(2)
+        share = 1.0 - float(nz.float().mean())
+        del nz
+    ms = device_ms(torch, [call], 5)
+    say(f"  bsr_spmm: device time per call (CUDA events behind a sleep "
+        f"kernel; L2-cold) {ms:.4f} ms; all-zero 16 x 8 A sub-tiles "
+        f"skipped: {share if share is None else f'{100 * share:.4f}%'}")
+    del y
+    return dict(device_launches=n, device_ms_l2_cold=ms,
+                zero_subtile_share=share)
 
 
 def embedding_bag_row(torch, build, eb, eb_ops, eb_ref, dev):
@@ -1209,8 +1386,12 @@ def phase_off_main(torch, build, g, assignment, dev):
     say(f"  lp_gain = edge scan (exact); rows with an admissible target "
         f"{int((want[1] >= 0).sum())}")
     _, fn, args, kw = cap.inputs["lp_gain"]
+    N, D = args[0].shape
+    say(f"  lp_gain slabs: D={D} lanes, three {N} x {D} slabs of "
+        f"{nbytes(*args[:3])} bytes together")
     rows.append(held_and_timed(torch, "lp_gain", fn, gain_ref.lp_gain_ell_ref,
                                args, {}, 20, launches))
+    lp_gain_lane_widths(torch, g, labels, cw, budget, fn, args, dev)
     del cap, args, got, want
     torch.cuda.empty_cache()
 
@@ -1256,6 +1437,8 @@ def phase_off_main(torch, build, g, assignment, dev):
         f"({2.0 * int(real.sum()) * bs * bs * xp.shape[1] / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms "
         "at the f32 rate)")
 
+    extra = bsr_spmm_launches_and_times(torch, args, kw)
+
     @functools.lru_cache(maxsize=1)
     def bsr_matrix():       # built at the first library call
         crow = torch.zeros(rb + 1, dtype=torch.int64, device=dev)
@@ -1266,6 +1449,7 @@ def phase_off_main(torch, build, g, assignment, dev):
     rows.append(held_and_timed(torch, "bsr_spmm", fn, bsr_ref.bsr_spmm_ref,
                                args, kw, 20, launches,
                                library=lambda *_: bsr_matrix() @ xp))
+    rows[-1].update(extra)
     bsr_matrix.cache_clear()
     del cap, args, col, vals, xp, real, y
     torch.cuda.empty_cache()

@@ -4,7 +4,9 @@
 Hopper port of the JAX package's Pallas kernel ``repro/kernels/bsr_spmm/
 bsr_spmm.py::bsr_spmm``. A CPU tensor runs the plain version (``ref``); a
 CUDA tensor launches the kernel or raises. Unlike the TPU kernel it takes
-any F (no padding to 128 lanes) and any block size up to 128.
+any F (no padding to 128 lanes) and any block size up to 128. The kernel
+multiplies in error-compensated TF32 on the tensor cores, exact f32 where
+a value does not split, and skips all-zero 16 x 8 sub-tiles of A.
 """
 from __future__ import annotations
 
@@ -16,7 +18,6 @@ from .ref import bsr_spmm_ref
 _SIG = {"bsr_spmm": [_build.P] * 3 + [_build.I] * 4 + [_build.P] * 2}
 
 MAX_BS = 128        # the kernel's Y tile holds 128 rows
-F_TILE = 64         # Y columns per CTA; the grid's y extent is F / F_TILE
 
 
 def bsr_spmm(col_flat, vals, x, *, block_rows: int, nnz_per_row: int):
@@ -47,17 +48,24 @@ def bsr_spmm(col_flat, vals, x, *, block_rows: int, nnz_per_row: int):
     if not 1 <= bs <= MAX_BS:
         raise ValueError(f"bsr_spmm: block size {bs} outside [1, "
                          f"{MAX_BS}]")
-    if block_rows >= 2**31 or -(-f // F_TILE) > 65535:
-        raise ValueError(f"bsr_spmm: {block_rows} block rows x {f} "
-                         "columns exceed the launch limits")
+    if block_rows >= 2**31:
+        raise ValueError(f"bsr_spmm: {block_rows} block rows exceed the "
+                         "launch limit")
     _build.check_index_range("bsr_spmm col_flat", col_flat, cb)
     y = torch.empty(block_rows * bs, f, dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
+    return _launch(col_flat, vals, x, y, block_rows, nnz_per_row)
+
+
+def _launch(col_flat, vals, x, y, block_rows: int, nnz_per_row: int):
+    """Launch the kernel on operands ``bsr_spmm`` has checked, into ``y``:
+    no check and no read-back, so a CUDA graph can capture it."""
     lib = _build.load("bsr_spmm", _SIG)
     p = _build.ptr
     err = lib.bsr_spmm(p(col_flat), p(vals), p(x), block_rows, nnz_per_row,
-                       bs, f, p(y), _build.stream_of(vals))
+                       vals.shape[1], x.shape[1], p(y),
+                       _build.stream_of(vals))
     _build.check(err, "bsr_spmm")
     _build.count_launch("bsr_spmm")
     return y

@@ -2,9 +2,10 @@
 
 The JAX package's ``bsr_spmm_ref`` op for op: gather the X block of every
 slot, one dense block product per slot, then the sum over each row's
-slots. The kernel accumulates the same products in another order (one
-fmaf chain per output), so the two agree within f32 rounding, not bit for
-bit. On the card the products go through cuBLAS: run it with
+slots. The kernel accumulates the same products in another order, in
+error-compensated TF32 on the tensor cores (about f32's rounding; exact
+f32 where a value is not finite), so the two agree within f32 rounding,
+not bit for bit. On the card the products go through cuBLAS: run it with
 ``torch.backends.cuda.matmul.allow_tf32`` off, or TF32 makes this side
 the inexact one. The wrapper runs it for CPU tensors; the chip check
 holds the kernel to it.

@@ -14,7 +14,17 @@ oracle and its ``ops`` entry point:
   gets the reference tests' tolerances: rtol/atol 1e-5 on sparse blocks,
   2e-4 on dense normal ones, rtol 5e-5 / atol 5e-4 through ``spmm``;
 * ``embedding_bag`` adds rows in j order from zero; ``.sum(axis=1)`` of
-  up to two rows is the same sum, beyond that it gets 1e-5.
+  up to two rows is the same sum, beyond that it gets 1e-5;
+* ``prepare_ell`` and ``lp_gain`` at 32 lanes give the reference's
+  128-lane results (cut to 32 lanes; bit for bit);
+* the error-compensated TF32 split of the ``bsr_spmm`` kernel, emulated
+  with int32 bit operations and summed as the kernel sums it under a
+  model of the tensor cores' truncating mma, keeps its products within
+  the kernel's rtol / atol 1e-5.
+
+The ``gpu``-marked tests hold the two kernels redesigned for the card
+(``bsr_spmm`` on non-finite inputs, ``lp_gain`` at both lane widths) to
+their plain versions there; they skip without a CUDA device.
 
 Inputs come from seeded numpy generators (no Hypothesis: its example
 database is tracked and a property run rewrites it).
@@ -101,6 +111,21 @@ def test_prepare_ell_matches_reference(family, n, row_tile, max_degree):
     assert got[2] == want[2] and got[0].shape[0] % row_tile == 0
 
 
+@pytest.mark.parametrize("family,n,seed,d32", [("rgg2d", 600, 1, 32),
+                                               ("ba", 1000, 2, 160)])
+def test_prepare_ell_at_32_lanes_is_the_reference_cut(family, n, seed, d32):
+    """32 lanes: the reference's arrays cut to max(32, ceil(d / 32) * 32)
+    lanes (ba 1000 has a vertex of degree 139: 160 lanes, not 256)."""
+    g, tg = _graphs(family, n, seed=seed)
+    want = ref_gain_ops.prepare_ell(g, 128)
+    idx, wgt, d = gain_ops.prepare_ell(tg, 128, lanes=32)
+    assert d == d32 == max(32, -(-int(g.degrees().max()) // 32) * 32)
+    assert want[2] == max(128, -(-d32 // 128) * 128) > d32 or d32 == 128
+    _eq(idx, want[0][:, :d32])
+    _eq(wgt, want[1][:, :d32])
+    assert (want[0][:, d32:] == -1).all() and (want[1][:, d32:] == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # lp_gain
 # ---------------------------------------------------------------------------
@@ -153,6 +178,28 @@ def test_lp_gain_entry_matches_reference_ops(slack):
     got = gain_ops.lp_gain(tg, labels, cw, budget, row_tile=128, device=CPU)
     for a, b in zip(got, want):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("lanes", [32, 128])
+@pytest.mark.parametrize("family,n,seed", [("rgg2d", 600, 2), ("ba", 1000, 2)])
+def test_lp_gain_entry_at_both_lane_widths_matches_reference_ops(
+        family, n, seed, lanes):
+    """``ops.lp_gain`` at 32 lanes (its default) and at 128 gives the
+    reference's ``lp_gain`` (128 lanes, the Pallas kernel in interpret
+    mode) bit for bit: rgg2d (32 against 128 lanes) and ba 1000, whose
+    degree-139 hub makes the widths 160 and 256. The budget admits only
+    the lighter half of the blocks, so admission bites."""
+    g, tg = _graphs(family, n, seed=seed)
+    labels = np.random.default_rng(3).integers(0, 8, g.n)
+    cw = np.zeros(8, dtype=np.int64)
+    np.add.at(cw, labels, g.vweights)
+    budget = float(np.sort(cw)[4])
+    want = ref_gain_ops.lp_gain(g, labels, cw, budget, row_tile=128)
+    got = gain_ops.lp_gain(tg, labels, cw, budget, row_tile=128, device=CPU,
+                           lanes=lanes)
+    for a, b in zip(got, want):
+        _eq(a, b)
+    assert (want[1] >= 0).any() and (want[1] == -1).any()
 
 
 def _chip_smoke():
@@ -259,6 +306,202 @@ def test_bsr_column_block_out_of_range_raises():
     with pytest.raises(ValueError, match="out of range"):
         bsr_spmm.bsr_spmm(torch.from_numpy(col), torch.from_numpy(vals),
                           torch.from_numpy(x), block_rows=2, nnz_per_row=1)
+
+
+# ---------------------------------------------------------------------------
+# bsr_spmm's error-compensated TF32 ("3xTF32"), emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(v):
+    """``cvt.rna.tf32.f32`` of finite f32 by int32 bit operations: the
+    magnitude rounded to 10 mantissa bits, ties away from zero (half of
+    the 13 dropped bits added to the sign-magnitude pattern, then the 13
+    bits cleared)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(v):
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+def _finite_f32(seed, n=200_000):
+    """Finite f32 over the whole exponent range, subnormals, signed zeros
+    and exact tf32 ties included."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    v = bits.view(np.float32)
+    v = v[np.isfinite(v)]
+    ties = (rng.integers(0, 2**19, 1000, dtype=np.uint64).astype(np.uint32)
+            << 13 | 0x1000).view(np.float32)
+    extra = np.array([0.0, -0.0, 1.0, -1.0, 1 + 2**-11, -(1 + 2**-11),
+                      np.finfo(np.float32).tiny, 2**-149, 3.0e38],
+                     dtype=np.float32)
+    return torch.from_numpy(np.concatenate([v, ties[np.isfinite(ties)],
+                                            extra]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tf32_rna_rounds_to_nearest_ties_away(seed):
+    v = _finite_f32(seed)
+    v = v[v.abs() < 3.4e38]          # rounding up past FLT_MAX gives inf
+    hi = _tf32_rna(v)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    # the same rounding in f64: 10 mantissa bits at v's exponent
+    # (subnormals at the smallest normal exponent), ties away from zero
+    a = v.double().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, 1.0))).clamp(min=-126)
+    ulp = torch.pow(2.0, e - 10)
+    want = torch.sign(v.double()) * torch.floor(a / ulp + 0.5) * ulp
+    np.testing.assert_array_equal(hi.double().numpy(), want.numpy())
+    assert torch.equal(hi.signbit(), v.signbit())
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_tf32_split_hi_plus_residual_is_exact(seed):
+    """``v - hi`` is exact in f32, so hi + (v - hi) == v for every finite
+    f32; rounding the residual to tf32 (the kernel's lo) leaves at most
+    2^-22 |v|, or half of tf32's subnormal step, 2^-137."""
+    v = _finite_f32(seed)
+    v = v[v.abs() < 3.4e38]
+    hi = _tf32_rna(v)
+    res = v - hi
+    assert torch.equal(hi.double() + res.double(), v.double())
+    lo = _tf32_rna(res)
+    left = (v.double() - hi.double() - lo.double()).abs()
+    assert bool((left <= torch.clamp(2.0**-22 * v.double().abs(),
+                                     min=2.0**-137)).all())
+
+
+def _round_toward_zero(v, window):
+    """v (f64) cut toward zero to ``window`` significant bits."""
+    a = v.abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, 1.0)))
+    step = torch.pow(2.0, e - (window - 1))
+    return torch.trunc(v / step) * step
+
+
+def _mma(c, prods, window):
+    """A model of one ``mma.sync`` TF32 step per output: ``c`` (f64 holding
+    f32) plus its eight products (exact: tf32 x tf32 fits f32), every
+    addend truncated toward zero at the scale of the largest (``window``
+    bits), summed, the sum cut toward zero to f32's 24 bits."""
+    terms = torch.cat([c[..., None], prods], -1)
+    top = terms.abs().amax(-1)
+    e = torch.floor(torch.log2(torch.where(top > 0, top, 1.0)))
+    step = torch.pow(2.0, e - (window - 1))[..., None]
+    total = (torch.trunc(terms / step) * step).sum(-1)
+    return _round_toward_zero(total, 24).float().double()
+
+
+def _tensor_core_bsr(col, vals, x, rb, nnz, chained, window=22):
+    """The kernel's finite path under the ``_mma`` model: per 8-deep step,
+    a_lo x_hi, a_hi x_lo and a_hi x_hi summed by three mma steps in a
+    fresh value and added to the f32 Y tile rounded to nearest; or, with
+    ``chained``, the three mma steps onto the Y tile itself."""
+    bs, f = vals.shape[1], x.shape[1]
+    ah, al = (t.double() for t in _split(vals))
+    xh, xl = (t.double() for t in _split(x))
+    acc = torch.zeros(rb, bs, f, dtype=torch.float64)
+    for slot in range(nnz):
+        c = col.view(rb, nnz)[:, slot].long()
+        pairs = [(a.view(rb, nnz, bs, bs)[:, slot], b.view(-1, bs, f)[c])
+                 for a, b in ((al, xh), (ah, xl), (ah, xh))]
+        for k0 in range(0, bs, 8):
+            k1 = min(k0 + 8, bs)
+            step = acc if chained else torch.zeros_like(acc)
+            for a, b in pairs:      # products (rb, bs, f, depth)
+                p = (a[:, :, k0:k1, None] * b[:, None, k0:k1, :]
+                     ).permute(0, 1, 3, 2)
+                step = _mma(step, p, window)
+            acc = step if chained else (acc.float() + step.float()).double()
+    return acc.view(rb * bs, f).float()
+
+
+@pytest.mark.parametrize("rb,nnz,bs,f", [(3, 2, 128, 1), (4, 3, 128, 130),
+                                         (5, 1, 128, 64), (3, 2, 64, 96)])
+def test_three_tf32_products_hold_the_kernels_tolerance(rb, nnz, bs, f):
+    """a_lo x_hi + a_hi x_lo + a_hi x_hi, each product of tf32 parts,
+    summed as the kernel sums them (three mma steps a depth of 8 in a
+    fresh value, then one f32 add to the Y tile), stays within the
+    kernel's (rtol 1e-5, atol 1e-5) of the plain version on
+    chip_smoke.py's ragged bsr_spmm shapes (one slot a row, F = 1 and 130,
+    BS = 64). The mma model truncates every addend at 22 bits below the
+    largest, coarser than the H100 showed: chaining the three steps onto
+    the Y tile measured 1.9e-5 there on the F = 130 shape, 3.1e-5 under
+    this model. Chaining is also worse than the kernel's order here, and
+    a single TF32 product misses the tolerance."""
+    col, vals, x = _blocks(rb * 100 + f, rb, nnz, bs, f, dense=False)
+    col, vals, x = (torch.from_numpy(a) for a in (col, vals, x))
+    kw = dict(block_rows=rb, nnz_per_row=nnz)
+    want = bsr_spmm.bsr_spmm(col, vals, x, **kw)
+    got = _tensor_core_bsr(col, vals, x, rb, nnz, chained=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    chained = _tensor_core_bsr(col, vals, x, rb, nnz, chained=True)
+    assert ((got - want).abs().max() <= (chained - want).abs().max())
+    ah, _ = _split(vals)
+    xh, _ = _split(x)
+    assert not torch.allclose(bsr_spmm.bsr_spmm(col, ah, xh, **kw), want,
+                              rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the redesigned kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rb,nnz,bs,f,kind", [
+    (4, 3, 128, 128, "scattered"), (3, 2, 128, 130, "scattered"),
+    (5, 2, 64, 1, "scattered"), (4, 2, 128, 128, "zero_weights"),
+    (3, 3, 99, 36, "zero_weights"), (3, 2, 128, 64, "beyond_split")])
+def test_bsr_spmm_kernel_carries_non_finite_values_on_gpu(
+        rb, nnz, bs, f, kind, cuda_device):
+    """+-inf and NaN in X, zero padded slots on column block 0, an inf met
+    only by zero weights (NaN in the plain version), values beyond the
+    split's range: the kernel gives the plain version's NaNs and
+    infinities and its finite values within rtol / atol 1e-5."""
+    col, vals, x = _chip_smoke().bsr_non_finite(
+        np.random.default_rng(rb * bs + f), rb, nnz, bs, f, kind)
+    col = col.astype(np.int32)
+    vals, x = vals.astype(np.float32), x.astype(np.float32)
+    kw = dict(block_rows=rb, nnz_per_row=nnz)
+    want = bsr_spmm.bsr_spmm(*(torch.from_numpy(a) for a in (col, vals, x)),
+                             **kw)
+    assert (~want.isfinite()).any()
+    on = [torch.from_numpy(a).to(cuda_device) for a in (col, vals, x)]
+    got = bsr_spmm.bsr_spmm(*on, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [32, 128])
+@pytest.mark.parametrize("family,n,seed", [("rgg2d", 2000, 2),
+                                           ("ba", 1000, 2)])
+def test_lp_gain_kernel_matches_plain_at_both_lane_widths_on_gpu(
+        family, n, seed, lanes, cuda_device):
+    """The kernel on the entry point's operands at 32 and 128 lanes (D =
+    32 and 128 on rgg2d, 160 and 256 on ba 1000) gives the plain
+    version's bits."""
+    _, tg = _graphs(family, n, seed=seed)
+    labels = np.random.default_rng(4).integers(0, 8, tg.n)
+    cw = np.bincount(labels, weights=tg.vweights, minlength=8)
+    budget = float(cw.max() - 5)
+    args = gain_ops.gain_operands(tg, labels, cw, budget, 256, cuda_device,
+                                  lanes)
+    got = lp_gain.lp_gain_ell(*args)
+    want = lp_gain.lp_gain_ell(*(a.cpu() for a in args))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert (want[1] >= 0).any()
 
 
 # ---------------------------------------------------------------------------
