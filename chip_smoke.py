@@ -10,7 +10,8 @@ exits non-zero if any one fails:
 
   1. environment: build the CUDA kernels from ``src/repro_torch/csrc``
      (one nvcc per source, all started together), print the build time,
-     the torch/CUDA versions and the card's name and power limit;
+     the torch/CUDA versions, the card's name and power limit, its SM
+     clocks and the cycles of one dependent shared-memory load;
   2. ragged kernel cases: every kernel against its plain PyTorch version
      on small edge-case inputs, exact equality (bsr_spmm, whose sums run
      in another order, within rtol 1e-5 / atol 1e-5, its largest error
@@ -27,6 +28,11 @@ exits non-zero if any one fails:
      in X (one inf met only by zero weights, which the plain version
      turns into NaN), values beyond its TF32 split's range and an inf in
      A; lp_gain on operands built by its entry point at 32 and 128 lanes;
+     bal_scores on the fused round's operands (ELL ids with -1 lanes
+     first or anywhere, rows with no valid lane, hub rows of 160 and 256
+     lanes, K = 8192 restricted, block tables summed from the labels);
+     greedy_pick at K = 1, K = 2^20, pool ids out of [0, K) and M over
+     three of its 512-entry passes;
   3. the anchor: rgg2d n=4000, k=16, eps=0.03 with the benchmark config
      (C=256, 4 chunks, 2 IP repetitions) must give cut 819, feasible,
      under ``kernel="fused"`` and ``kernel="composed"``;
@@ -52,7 +58,15 @@ exits non-zero if any one fails:
      not wait for the stream (``set_sync_debug_mode("error")``);
      seg_merge's device time is printed L2-warm and L2-cold (four input
      copies in turn), the plain version's alike, beside one torch.sort of
-     its packed keys ("sort only", a yardstick);
+     its packed keys ("sort only", a yardstick); bal_scores and
+     greedy_pick, at the main path's call and at the finest level, must
+     make one device launch a call and wait for nothing, their device
+     times printed; the finest-level balancer prints its rounds, wall and
+     peak device memory, and its last round's device time split into the
+     score stage, the pool sort and greedy_pick (greedy_pick's bound is
+     its M dependent steps, each one shared-memory load-to-use latency,
+     measured in phase 1 by a pointer chase, at the card's maximum SM
+     clock);
   6. the kernels off the main path, each through its own entry point at
      full size on the default (CUDA) device, with launch counts zeroed
      just before and read just after each: ``lp_gain`` on the 2^20 graph
@@ -123,6 +137,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 MAIN_PATH = ("lp_move", "seg_merge", "bal_scores", "greedy_pick")
 # (rtol, atol) of a kernel against its plain version; the rest are exact
 TOLERANCE = {"bsr_spmm": (1e-5, 1e-5)}
+# measured in phase 1: cycles of one dependent shared-memory load, and the
+# card's maximum SM clock (MHz); greedy_pick's bound reads them
+CARD = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -158,7 +175,34 @@ def phase_environment(torch, build):
         for line in (build.build_log(name) or "").splitlines():
             if re.search(r"Used \d+ registers|spill", line):
                 say(f"  {name}: {line.strip()}")
+    measure_step_latency(torch)
     return smi
+
+
+def sm_clocks():
+    """(maximum, current) SM clock of card 0 in MHz, as nvidia-smi reports
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    mx, cur = (float(x) for x in out.split(","))
+    return mx, cur
+
+
+def measure_step_latency(torch):
+    """Fill CARD with what greedy_pick's bound needs: the cycles of one
+    dependent shared-memory load (a pointer chase on the card, median of
+    five) and the card's maximum SM clock."""
+    from repro_torch.kernels.bal_round import bal_round
+
+    dev = torch.device("cuda", 0)
+    cycles = float(np.median([bal_round.smem_load_cycles(dev)
+                              for _ in range(5)]))
+    mx, cur = sm_clocks()
+    CARD.update(smem_load_cycles=cycles, sm_clock_mhz=mx)
+    say(f"shared-memory load-to-use latency {cycles:.2f} cycles (pointer "
+        f"chase, median of 5); SM clock max {mx:.0f} MHz (now {cur:.0f})")
 
 
 # ---------------------------------------------------------------------------
@@ -220,39 +264,79 @@ def ragged_cases(torch, rng, dev):
                       tuple(_i32(torch, x, dev) for x in (src, dst, w)),
                       dict(max_id=max_id),
                       f"{kind}, key bits {seg_ref.key_bits(max_id)}"))
-    for R, D, K, restricted in ((1, 1, 4, False), (77, 9, 64, False),
-                                (513, 33, 64, True), (2000, 20, 128, False)):
-        nlab = rng.integers(0, K, (R, D))
-        nlab[rng.random((R, D)) < 0.3] = -1
-        nlab = -np.sort(-nlab, axis=1)
-        nlab[R - R // 4:] = -1
-        nw = np.where(nlab >= 0, rng.integers(1, 6, (R, D)), 0)
-        nbw = rng.integers(0, 50, (R, D))
-        nlm = rng.integers(20, 60, (R, D))
-        cols = [rng.integers(0, K, R), rng.integers(0, 7, R),
-                rng.integers(0, 2, R), rng.integers(0, 2, R),
-                rng.integers(0, K, R), rng.integers(0, 2, R)]
-        args = [_i32(torch, x, dev) for x in (nlab, nw, nbw, nlm, *cols)]
-        salt = int(rng.integers(0, 2**32))
-        extra = {}
-        if restricted:
-            par = rng.integers(0, K // 2, K)
-            extra = dict(npar=_i32(torch, par[np.maximum(nlab, 0)], dev),
-                         opar=_i32(torch, par[cols[0]], dev))
+    for R, D, K, restricted, what in BAL_RAGGED:
+        args, kw = bal_scores_operands(torch, rng, dev, R, D, K, restricted,
+                                       what)
         cases.append(("bal_scores", bal_round.bal_scores,
-                      bal_ref.bal_scores_ref, (*args, salt), extra))
-    for M, K in ((128, 64), (5, 3), (128, 1024), (128, 8192)):
+                      bal_ref.bal_scores_ell_ref, args, kw,
+                      *([what] if what else [])))
+    for M, K, what in ((128, 64, ""), (5, 3, ""), (128, 1024, ""),
+                       (128, 8192, ""), (128, 1, "K=1"),
+                       (128, 2**20, "K=2^20, beyond any CTA's staging"),
+                       (200, 50, "ids out of [0, K)"),
+                       (1300, 300, "M over three 512-entry passes")):
         vals = np.sort(rng.normal(size=M).astype(np.float32))[::-1].copy()
         vals[M - M // 4:] = -np.inf
         bw = rng.integers(0, 100, K)
         lm = rng.integers(40, 80, K)
+        lo, hi = (-3, K + 3) if what.startswith("ids") else (0, K)
+        cw = rng.integers(1, 10, M)
+        if K == 1:        # ids beside 0, an overloaded block, weights < 0
+            lo, hi, bw = -2, 3, lm + 5
+            cw -= 9
         args = (torch.from_numpy(vals).to(dev),
                 *(_i32(torch, x, dev) for x in (
-                    rng.integers(0, K, M), rng.integers(0, K, M),
-                    rng.integers(1, 10, M), bw, lm)))
+                    rng.integers(lo, hi, M), rng.integers(lo, hi, M), cw,
+                    bw, lm)))
         cases.append(("greedy_pick", bal_round.greedy_pick,
-                      bal_ref.greedy_pick_ref, args, {}))
+                      bal_ref.greedy_pick_ref, args, {},
+                      *([what] if what else [])))
     return cases + micro_ragged_cases(torch, rng, dev)
+
+
+# bal_scores' ragged cases: (R, D, K, restricted, what); "holes" puts -1
+# lanes anywhere in a row, "empty" gives a third of the rows below n no
+# valid lane; D = 100 holds 4 tiles in registers, 160 and 256 walk a row's
+# tiles from memory
+BAL_RAGGED = ((1, 1, 4, False, ""), (77, 9, 64, False, ""),
+              (513, 33, 64, True, "holes"), (2000, 20, 128, False, ""),
+              (1000, 70, 32, True, "holes"), (700, 100, 64, False, "holes"),
+              (300, 160, 16, False, "hub row, D=160"),
+              (300, 256, 16, True, "hub row, D=256"),
+              (4000, 24, 8192, True, "K=8192"),
+              (3000, 32, 64, False, "empty"))
+
+
+def bal_scores_operands(torch, rng, dev, R, D, K, restricted, what):
+    """(args, kw) of one bal_scores call in the fused round's form: ELL ids
+    (valid lanes first, or anywhere for "holes"; rows >= n padded) and
+    weights, labels skewed to block 0, vertex weights, block weights
+    summed from those labels, budgets that leave block 0 and some others
+    overloaded, the parent groups (restricted) and the fallback table the
+    fused round composes."""
+    from repro_torch.kernels.bal_round import ops as bal_ops
+
+    n = R - R // 4
+    idx = rng.integers(0, R, (R, D))
+    idx[rng.random((R, D)) < 0.3] = -1
+    if what != "holes":
+        idx = -np.sort(-idx, axis=1)             # valid lanes first
+    if what.startswith("hub"):
+        idx[R // 3] = rng.integers(0, R, D)      # every lane valid
+    if what == "empty":
+        idx[rng.random(R) < 1 / 3] = -1
+    idx[n:] = -1
+    w = np.where(idx >= 0, rng.integers(1, 6, (R, D)), 0)
+    labels = rng.integers(0, K, R)
+    labels[rng.random(R) < 0.3] = 0
+    vw = rng.integers(1, 7, R)
+    bw = np.bincount(labels[:n], weights=vw[:n], minlength=K)
+    lm = (bw.sum() / K * rng.uniform(0.9, 1.3, K)).astype(np.int64)
+    par = rng.integers(0, max(1, K // 4), K)
+    t = [_i32(torch, x, dev) for x in (idx, w, labels, vw, bw, lm, par)]
+    fb = bal_ops.fallback_table(t[4], t[6], restricted)
+    salt = int(rng.integers(0, 2**32))
+    return (*t[:6], fb, n, salt), (dict(parent=t[6]) if restricted else {})
 
 
 def seg_merge_cases():
@@ -761,10 +845,10 @@ def phase_main_path(torch, api, build, candidates, seg_calls):
     return g, launches, res.assignment
 
 
-def skewed_rebalance(g, assignment, dev) -> int:
+def skewed_rebalance(g, assignment, dev) -> dict:
     """Rebalance the finest level after moving 2000 vertices of block 1
     into block 0 (an overload a few pool rounds repair); returns the
-    number of rounds."""
+    balancer's stats (rounds, time_s: its wall, host ELL build included)."""
     from repro_torch.core import balance, metrics
 
     part = np.asarray(assignment).copy()
@@ -776,7 +860,84 @@ def skewed_rebalance(g, assignment, dev) -> int:
                             kernel="fused", device=dev, stats=stats)
     check(metrics.is_feasible(g, out, 16, 0.03),
           "the balancer left the skewed partition infeasible")
-    return stats["rounds"]
+    return stats
+
+
+def finest_balancer(torch, build, g, assignment, dev):
+    """The finest-level balancer (``skewed_rebalance``), run twice: as it
+    is, for its rounds, launches, wall and peak device memory; then with
+    the inputs of its last round's stages captured (``fused_round_scores``,
+    ``bal_scores``, ``greedy_pick``; capturing clones them, so that run is
+    not measured). Prints the first; returns (stats, capture)."""
+    from repro_torch.kernels.bal_round import ops as bal_ops
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    st = skewed_rebalance(g, assignment, dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(rounds=st["rounds"], wall_s=st["time_s"],
+                 launches=dict(build.LAUNCHES), peak_bytes=peak,
+                 peak_above_bytes=peak - before)
+    say(f"  finest-level balancer on a skewed partition: {st['rounds']} "
+        f"rounds, wall {st['time_s']:.4f} s, peak device memory {peak} "
+        f"bytes ({peak - before} above the {before} held before), launches "
+        f"{json.dumps(stats['launches'], sort_keys=True)} (not the main "
+        "path's)")
+    cap = Capture(torch)
+    for name in ("fused_round_scores", "bal_scores", "greedy_pick"):
+        cap.wrap(bal_ops, name, name)
+    try:
+        skewed_rebalance(g, assignment, dev)
+    finally:
+        cap.restore()
+    return stats, cap
+
+
+def round_stages(torch, cap):
+    """Device ms of the stages of the finest level's last round, on its
+    captured inputs (CUDA events behind a sleep kernel): the score stage
+    (``fused_round_scores``: the fallback table, ``bal_scores`` and any
+    gathers around it), the pool (the stable descending sort of ``rel``
+    and the pool's four gathers, as ``balance_round_fused`` does them) and
+    ``greedy_pick``. The labels update and the overload check's read-back
+    are not timed."""
+    _, score_fn, sargs, skw = cap.inputs["fused_round_scores"]
+    _, pick_fn, pargs, pkw = cap.inputs["greedy_pick"]
+    rel, tgt = score_fn(*sargs, **skw)
+    labels, vw, top_m = sargs[0], sargs[6], pargs[0].numel()
+
+    def pool():
+        vidx = torch.sort(rel, descending=True, stable=True).indices[:top_m]
+        return rel[vidx], tgt[vidx], labels[vidx], vw[vidx]
+
+    out = dict(score_ms=device_ms(torch, [lambda: score_fn(*sargs, **skw)],
+                                  10),
+               pool_ms=device_ms(torch, [pool], 10),
+               pick_ms=device_ms(torch, [lambda: pick_fn(*pargs, **pkw)],
+                                 50))
+    say(f"  finest-level round, device ms (CUDA events behind a sleep "
+        f"kernel) at R={labels.numel()}, M={top_m}: score stage "
+        f"{out['score_ms']:.4f}, pool sort {out['pool_ms']:.4f}, greedy_pick "
+        f"{out['pick_ms']:.4f}; sum {sum(out.values()):.4f}")
+    return out
+
+
+def kernel_device(torch, name, fn, args, kw, where, expect=1):
+    """One call's device launches (graph nodes; fails unless ``expect``,
+    if given), device ms per call (CUDA events behind a sleep kernel) and
+    the no-stream-wait check."""
+    call = lambda: fn(*args, **kw)          # noqa: E731
+    n = say_launches(torch, name, call, where)
+    check(expect is None or n == expect,
+          f"{name}: {n} device launches per call {where}; expected {expect}")
+    ms = device_ms(torch, [call], 50 if name == "greedy_pick" else 20)
+    say(f"  {name}: device time per call {ms:.4f} ms {where} (CUDA events "
+        "behind a sleep kernel)")
+    no_stream_wait(torch, name, call)
+    return dict(device_launches=n, device_ms=ms)
 
 
 # ---------------------------------------------------------------------------
@@ -809,11 +970,21 @@ def bound(kind: str, args, kw, out):
     operations these inputs need over the card's 32-bit rate.
 
     The ELL kernels (lp_move, bal_scores, lp_gain) need only the valid
-    lanes of their (R, D) slabs, a prefix of each row: a slab counts
-    sum(deg) lanes, not R * D. bsr_spmm needs 2 F operations per nonzero
-    entry of its blocks (the zeros inside and the all-zero padded blocks
-    need none, though they are read); embedding_bag reads each distinct
-    table row once."""
+    lanes of their (R, D) slabs: a slab counts sum(deg) lanes, not R * D
+    (bal_scores: the valid lanes of ell_idx and ell_w, then its label
+    table, per-row columns and K-entry block tables once, and its
+    outputs). bsr_spmm needs 2 F operations per nonzero entry of its
+    blocks (the zeros inside and the all-zero padded blocks need none,
+    though they are read); embedding_bag reads each distinct table row
+    once.
+
+    greedy_pick is bound by the latency of its M steps, not by bytes or
+    throughput: each step's test reads the weights of two blocks that
+    the step before may have written, so the M steps form one chain of
+    dependent loads, and the least time a load of the chain can take is
+    one shared-memory load-to-use latency (CARD, measured in phase 1 by a
+    pointer chase) at the card's maximum SM clock. Its "operations" time
+    is M x that latency."""
     tensors = [a for a in args if hasattr(a, "numel")]
     tensors += [v for v in kw.values() if hasattr(v, "numel")]
     outs = out if isinstance(out, tuple) else (out,)
@@ -843,11 +1014,14 @@ def bound(kind: str, args, kw, out):
         moved = nbytes(idx) + rows * table.shape[1] * table.element_size() \
             + nbytes(*outs)
         ops = float(idx.numel() * table.shape[1])
-    else:
+    else:                                          # greedy_pick
         moved = nbytes(*tensors) + nbytes(*outs)
-        ops = float(12 * args[0].numel())        # one guarded step each
+        ops = 0.0
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    if kind == "greedy_pick":
+        t_ops = args[0].numel() * CARD["smem_load_cycles"] / (
+            CARD["sm_clock_mhz"] * 1e6) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1057,7 +1231,6 @@ def seg_merge_launches_and_times(torch, fn, plain, args, kw, row):
 def phase_kernels(torch, build, capture, launches, g, assignment, dev):
     say("== phase 5: kernels against their plain versions at main-path "
         "shapes (tolerance 0: every output, rel included, bit-identical)")
-    from repro_torch.kernels.bal_round import ops as bal_ops
     from repro_torch.kernels.bal_round import ref as bal_ref
     from repro_torch.kernels.lp_move import ref as lp_ref
     from repro_torch.kernels.seg_merge import ref as seg_ref
@@ -1065,7 +1238,7 @@ def phase_kernels(torch, build, capture, launches, g, assignment, dev):
 
     plain = {"lp_move": lp_ref.lp_move_chunk_ref,
              "seg_merge": seg_ref.seg_merge_ref,
-             "bal_scores": bal_ref.bal_scores_ref,
+             "bal_scores": bal_ref.bal_scores_ell_ref,
              "greedy_pick": bal_ref.greedy_pick_ref}
     runs = [(name, *capture.inputs[name][1:]) for name in MAIN_PATH]
     # beyond the main path's own inputs (printed, not in the record):
@@ -1073,17 +1246,7 @@ def phase_kernels(torch, build, capture, launches, g, assignment, dev):
     # finest level
     sa, skw = synthetic_seg_merge(torch, g, dev)
     runs.append(("seg_merge", seg_mod.seg_merge, sa, skw))
-    finest = Capture(torch)
-    finest.wrap(bal_ops, "bal_scores", "bal_scores")
-    finest.wrap(bal_ops, "greedy_pick", "greedy_pick")
-    build.reset_launches()
-    try:
-        rounds = skewed_rebalance(g, assignment, dev)
-    finally:
-        finest.restore()
-    say(f"  finest-level balancer on a skewed partition: {rounds} rounds, "
-        f"launches {json.dumps(dict(build.LAUNCHES), sort_keys=True)} "
-        "(not the main path's)")
+    stats, finest = finest_balancer(torch, build, g, assignment, dev)
     runs += [(name, *finest.inputs[name][1:])
              for name in ("bal_scores", "greedy_pick")]
     rows = {}
@@ -1100,7 +1263,15 @@ def phase_kernels(torch, build, capture, launches, g, assignment, dev):
             say(f"  seg_merge at {args[0].numel()} records: device time per "
                 f"call {device_ms(torch, [lambda: fn(*args, **kw)], 10):.4f}"
                 " ms (L2-warm)")
+        if name in ("bal_scores", "greedy_pick"):
+            where = ("at the main path's call" if name not in rows
+                     else "at the finest level")
+            extra = kernel_device(torch, name, fn, args, kw, where)
+            if name not in rows:
+                row.update(extra)
         rows.setdefault(name, row)    # beyond the main path: printed only
+    round_stages(torch, finest)
+    del finest
     return [rows[name] for name in MAIN_PATH]
 
 

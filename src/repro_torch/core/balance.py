@@ -20,7 +20,7 @@ import torch
 
 from ..graphs.format import Graph
 from ..kernels import dispatch
-from ..kernels.bal_round.ops import fallback_target
+from ..kernels.bal_round.ops import fallback_table
 from ..kernels.bal_round.ref import NEG_INF, greedy_pick_ref
 from . import lp
 from .lp import I32_MAX, _argmax_target, _group_conns, _own_connection
@@ -48,7 +48,7 @@ def balance_gains(lab_src_tab, s_src, s_lab, s_w, block_w, l_max, parent,
     has_adj = (best >= 0) & (target < I32_MAX)
     tgt_adj = torch.where(has_adj, target, 0)
     gain_adj = best - own_conn
-    fb_t = fallback_target(block_w, parent, lab_src_tab, restricted)
+    fb_t = fallback_table(block_w, parent, restricted)[lab_src_tab.long()]
     fb_l = fb_t.long()
     fb_ok = (block_w[fb_l] <= l_max[fb_l] - vw_pad) & (fb_t != lab_src_tab)
 
@@ -152,7 +152,7 @@ def rebalance(g: Graph,
         if fused_ell is not None:
             labels_t, block_w_t, overloaded = bal_ops.balance_round_fused(
                 labels_t, block_w_t, l_max_t, parent_t, fused_ell[0],
-                fused_ell[1], vw_t, valid, salt, top_m=top_m,
+                fused_ell[1], vw_t, n, salt, top_m=top_m,
                 restricted=restricted)
         else:
             labels_t, block_w_t, overloaded = balance_round(

@@ -2,46 +2,53 @@
 
 ``bal_scores`` and ``greedy_pick`` are the hand-written Hopper ports of the
 JAX package's Pallas kernels ``repro/kernels/bal_round/bal_round.py::
-bal_scores`` and ``::greedy_pick``. A CPU tensor runs the plain version
-(``ref``); a CUDA tensor launches the kernel or raises.
+bal_scores`` and ``::greedy_pick``; ``bal_scores`` also does the gathers
+that fed the TPU kernel its pre-gathered slabs, reading the ELL ids and the
+block tables itself. A CPU tensor runs the plain version (``ref``); a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import NEG_INF, bal_scores_ref, greedy_pick_ref
+from .ref import NEG_INF, bal_scores_ell_ref, greedy_pick_ref
 
-_SIG = {"bal_scores": [_build.P] * 12 + [_build.I] * 2 + [_build.U]
+_SIG = {"bal_scores": [_build.P] * 8 + [_build.I] * 4 + [_build.U]
         + [_build.P] * 3,
-        "greedy_pick": [_build.P] * 6 + [_build.I] * 2 + [_build.P] * 3}
+        "greedy_pick": [_build.P] * 6 + [_build.I] * 2 + [_build.P] * 3,
+        "smem_chase_cycles": [_build.I, _build.P, _build.P]}
 
 __all__ = ["NEG_INF", "bal_scores", "greedy_pick"]
 
 
-def bal_scores(nlab, nw, nbw, nlm, own, vw, ovr, vld, fb_t, fb_ok,
-               salt: int, npar=None, opar=None):
+def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
+               n: int, salt: int, parent=None):
     """Per-vertex relative gains + targets, ``(rel, tgt)`` (R,) f32 /
-    int32; the contract of ``ref.bal_scores_ref``."""
-    if nlab.device.type == "cpu":
-        return bal_scores_ref(nlab, nw, nbw, nlm, own, vw, ovr, vld, fb_t,
-                              fb_ok, salt, npar=npar, opar=opar)
-    if nlab.device.type != "cuda":
-        raise ValueError(f"bal_scores: unsupported device {nlab.device}")
-    if (npar is None) != (opar is None):
-        raise ValueError("bal_scores: npar and opar go together")
-    R, D = nlab.shape
-    dev = nlab.device
-    slabs = [("nlab", nlab), ("nw", nw), ("nbw", nbw), ("nlm", nlm)]
-    cols = [("own", own), ("vw", vw), ("ovr", ovr), ("vld", vld),
-            ("fb_t", fb_t), ("fb_ok", fb_ok)]
-    if npar is not None:
-        slabs.append(("npar", npar))
-        cols.append(("opar", opar))
-    for name, t in slabs:
-        _build.require(f"bal_scores {name}", t, torch.int32, (R, D), dev)
-    for name, t in cols:
-        _build.require(f"bal_scores {name}", t, torch.int32, (R,), dev)
+    int32; the contract of ``ref.bal_scores_ell_ref``. ``ell_idx`` /
+    ``ell_w`` (R, D) int32 (-1 / 0 padding), ``labels`` / ``vw`` (R,),
+    the block tables (K,) int32; ``parent`` selects the restricted form."""
+    if ell_idx.device.type == "cpu":
+        return bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
+                                  fb_of_block, n, salt, parent=parent)
+    if ell_idx.device.type != "cuda":
+        raise ValueError(f"bal_scores: unsupported device {ell_idx.device}")
+    R, D = ell_idx.shape
+    (K,) = block_w.shape
+    dev = ell_idx.device
+    req = _build.require
+    req("bal_scores ell_idx", ell_idx, torch.int32, (R, D), dev)
+    req("bal_scores ell_w", ell_w, torch.int32, (R, D), dev)
+    req("bal_scores labels", labels, torch.int32, (R,), dev)
+    req("bal_scores vw", vw, torch.int32, (R,), dev)
+    tables = [("block_w", block_w), ("l_max", l_max),
+              ("fb_of_block", fb_of_block)]
+    if parent is not None:
+        tables.append(("parent", parent))
+    for name, t in tables:
+        req(f"bal_scores {name}", t, torch.int32, (K,), dev)
+    if R == 0 or D == 0 or K == 0:
+        raise ValueError(f"bal_scores: empty operands (R={R}, D={D}, K={K})")
     if R >= 2**31:
         raise ValueError(f"bal_scores: {R} rows exceed the launch limit")
     lib = _build.load("bal_round", _SIG)
@@ -49,9 +56,9 @@ def bal_scores(nlab, nw, nbw, nlm, own, vw, ovr, vld, fb_t, fb_ok,
     tgt = torch.empty(R, dtype=torch.int32, device=dev)
     p = _build.ptr
     err = lib.bal_scores(
-        p(nlab), p(nw), p(nbw), p(nlm), p(npar), p(own), p(opar), p(vw),
-        p(ovr), p(vld), p(fb_t), p(fb_ok), R, D, int(salt) & 0xFFFFFFFF,
-        p(rel), p(tgt), _build.stream_of(nlab))
+        p(ell_idx), p(ell_w), p(labels), p(vw), p(block_w), p(l_max),
+        p(parent), p(fb_of_block), R, D, max(0, min(int(n), R)), K,
+        int(salt) & 0xFFFFFFFF, p(rel), p(tgt), _build.stream_of(ell_idx))
     _build.check(err, "bal_scores")
     _build.count_launch("bal_scores")
     return rel, tgt
@@ -69,16 +76,17 @@ def greedy_pick(vals, tgt_blk, src_blk, cand_w, block_w, l_max):
     (M,) = vals.shape
     (K,) = block_w.shape
     dev = vals.device
-    _build.require("greedy_pick vals", vals, torch.float32, (M,), dev)
-    for name, t in (("tgt_blk", tgt_blk), ("src_blk", src_blk),
-                    ("cand_w", cand_w)):
-        _build.require(f"greedy_pick {name}", t, torch.int32, (M,), dev)
-    for name, t in (("block_w", block_w), ("l_max", l_max)):
-        _build.require(f"greedy_pick {name}", t, torch.int32, (K,), dev)
+    req = _build.require
+    req("greedy_pick vals", vals, torch.float32, (M,), dev)
+    req("greedy_pick tgt_blk", tgt_blk, torch.int32, (M,), dev)
+    req("greedy_pick src_blk", src_blk, torch.int32, (M,), dev)
+    req("greedy_pick cand_w", cand_w, torch.int32, (M,), dev)
+    req("greedy_pick block_w", block_w, torch.int32, (K,), dev)
+    req("greedy_pick l_max", l_max, torch.int32, (K,), dev)
     if K < 1:
         raise ValueError("greedy_pick: the block table is empty")
     lib = _build.load("bal_round", _SIG)
-    accept = torch.empty(M, dtype=torch.int32, device=dev)
+    accept = torch.empty(M, dtype=torch.bool, device=dev)
     bw = torch.empty(K, dtype=torch.int32, device=dev)
     p = _build.ptr
     err = lib.greedy_pick(p(vals), p(tgt_blk), p(src_blk), p(cand_w),
@@ -86,4 +94,17 @@ def greedy_pick(vals, tgt_blk, src_blk, cand_w, block_w, l_max):
                           _build.stream_of(vals))
     _build.check(err, "greedy_pick")
     _build.count_launch("greedy_pick")
-    return accept != 0, bw
+    return accept, bw
+
+
+def smem_load_cycles(device, steps: int = 4096) -> float:
+    """Clock cycles of one dependent shared-memory load on ``device`` (a
+    pointer chase of ``steps`` loads by one thread): the latency of one
+    step of ``greedy_pick``'s walk, which its bound counts. Waits for the
+    stream."""
+    lib = _build.load("bal_round", _SIG)
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    _build.check(lib.smem_chase_cycles(steps, _build.ptr(out),
+                                       _build.stream_of(out)),
+                 "smem_chase_cycles")
+    return int(out[0]) / steps

@@ -3,10 +3,12 @@
 ``core.balance.rebalance`` feeds the composed round a single-chunk arc
 slab, sorted per round. The fused round takes the graph in ELL form once,
 one row per label-table slot ``0 .. n_pad`` and D warp-padded neighbor
-lanes; the per-round work is torch gathers plus the two kernels. The
-sentinel and padded rows carry no arcs and are masked by the ``valid``
-column exactly as the composed path masks them, so (labels, block_w)
-trajectories are bit-identical.
+lanes; the per-round work is the K-entry fallback table, the two kernels
+(``bal_scores`` reads the ELL ids and the block tables itself) and the
+pool sort: no (rows, D) tensor is built per round. The sentinel and
+padded rows carry no arcs and are masked (rows ``>= n``) exactly as the
+composed path masks them, so (labels, block_w) trajectories are
+bit-identical.
 """
 from __future__ import annotations
 
@@ -33,52 +35,40 @@ def build_balance_ell(g, n_pad: int):
     return idx, w
 
 
-def fallback_target(block_w, parent, lab_src, restricted: bool):
-    """Lightest-block fallback target per row: the lightest block overall,
-    or (restricted) the lightest sibling within the own parent group;
-    ties to the smaller block id."""
+def fallback_table(block_w, parent, restricted: bool):
+    """Each block's lightest-block fallback target, (K,) int32: the
+    lightest block overall, or (restricted) the lightest sibling within the
+    block's parent group; ties to the smaller block id."""
     k = block_w.shape[0]
     ids = torch.arange(k, dtype=torch.int32, device=block_w.device)
     if restricted:
         p = parent.long()
         grp_min = segment_min(block_w, p, k)
         bid = torch.where(block_w == grp_min[p], ids, I32_MAX)
-        grp_argmin = segment_min(bid, p, k)
-        return grp_argmin[parent[lab_src.long()].long()]
+        return segment_min(bid, p, k)[p]
     first_min = torch.where(block_w == block_w.min(), ids, I32_MAX).min()
-    return first_min.expand(lab_src.shape[0])
+    return first_min.expand(k).contiguous()
 
 
 def fused_round_scores(labels, bw, l_max, parent, ell_idx, ell_w, vw_pad,
-                       vld, salt: int, *, restricted: bool):
-    """Gather the ELL operands + run ``bal_scores``. Fallback target /
-    feasibility columns are composed exactly as
+                       n: int, salt: int, *, restricted: bool):
+    """``bal_scores`` on the ELL form and the block tables; its fallback
+    targets composed with K-sized ops exactly as
     ``core.balance.balance_gains`` composes them."""
-    valid_l = ell_idx >= 0
-    nlab = torch.where(valid_l, labels[torch.where(valid_l, ell_idx, 0)
-                                       .long()], -1)
-    nl = torch.where(valid_l, nlab, 0).long()
-    lab_i = labels.long()
-    over_own = bw[lab_i] > l_max[lab_i]
-    fb_t = fallback_target(bw, parent, labels, restricted)
-    fb_ok = (bw[fb_t.long()] <= l_max[fb_t.long()] - vw_pad) & \
-        (fb_t != labels)
-    kw = {}
-    if restricted:
-        kw = dict(npar=parent[nl], opar=parent[lab_i])
-    return bal_scores(nlab, ell_w, bw[nl], l_max[nl], labels, vw_pad,
-                      over_own.to(torch.int32), vld.to(torch.int32),
-                      fb_t.contiguous(), fb_ok.to(torch.int32), salt, **kw)
+    fb = fallback_table(bw, parent, restricted)
+    return bal_scores(ell_idx, ell_w, labels, vw_pad, bw, l_max, fb, n, salt,
+                      parent=parent if restricted else None)
 
 
 def balance_round_fused(labels, block_w, l_max, parent, ell_idx, ell_w,
-                        vweights, valid, salt: int, *, top_m: int,
+                        vweights, n: int, salt: int, *, top_m: int,
                         restricted: bool = False):
     """Fused twin of ``core.balance.balance_round``: same pool ranking,
-    same accept rule, bit-identical (labels, block_w) trajectory. Updates
-    ``labels`` in place and returns it."""
+    same accept rule, bit-identical (labels, block_w) trajectory; rows
+    ``>= n`` (padding and the sentinel) never move. Updates ``labels`` in
+    place and returns it."""
     rel, tgt = fused_round_scores(labels, block_w, l_max, parent, ell_idx,
-                                  ell_w, vweights, valid, salt,
+                                  ell_w, vweights, n, salt,
                                   restricted=restricted)
     # lax.top_k order: descending, ties to the lower index (torch.topk
     # breaks ties differently; a stable descending sort does not)

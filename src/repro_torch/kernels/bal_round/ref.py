@@ -1,9 +1,12 @@
 """Plain-PyTorch versions of the balance-round CUDA kernels.
 
-``bal_scores_ref`` follows the kernel's per-row ELL form and
-``greedy_pick_ref`` its sequential walk; both are the JAX package's
-``bal_scores_ref`` / ``greedy_pick_ref`` op for op. The wrappers run them
-for CPU tensors; the chip check holds the kernels to them.
+``bal_scores_ell_ref`` is the ``bal_scores`` kernel's function: the
+gathers of the per-lane and per-row operands from the ELL ids and the
+block tables, then ``bal_scores_ref`` on them. ``bal_scores_ref`` (the TPU
+kernel's pre-gathered form) and ``greedy_pick_ref`` (the sequential walk)
+are the JAX package's ``bal_scores_ref`` / ``greedy_pick_ref`` op for op.
+The wrappers run them for CPU tensors; the chip check holds the kernels to
+them.
 """
 from __future__ import annotations
 
@@ -36,6 +39,34 @@ def bal_scores_ref(nlab, nw, nbw, nlm, own, vw, ovr, vld, fb_t, fb_ok,
     cv = torch.clamp(vw.to(torch.float32), min=1.0)
     rel = torch.where(g >= 0, gf * cv, gf / cv)
     return torch.where(movable, rel, NEG_INF), tgt
+
+
+def bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
+                       fb_of_block, n: int, salt: int, parent=None):
+    """``(rel, tgt)`` of the rows of an ELL graph: ``ell_idx`` / ``ell_w``
+    (R, D) int32 neighbour rows and arc weights (-1 / 0 padding),
+    ``labels`` / ``vw`` (R,) int32 block and vertex weight of each row,
+    ``block_w`` / ``l_max`` / ``fb_of_block`` (K,) int32 block weights,
+    budgets and fallback targets; rows ``r >= n`` never move. ``parent``
+    (K,) selects the restricted form. The operands of ``bal_scores_ref``
+    are gathered here as the fused round gathered them for the TPU
+    kernel."""
+    valid_l = ell_idx >= 0
+    nlab = torch.where(valid_l, labels[torch.where(valid_l, ell_idx, 0)
+                                       .long()], -1)
+    nl = torch.where(valid_l, nlab, 0).long()
+    lab_i = labels.long()
+    over_own = block_w[lab_i] > l_max[lab_i]
+    fb_t = fb_of_block[lab_i]
+    fb_l = fb_t.long()
+    fb_ok = (block_w[fb_l] <= l_max[fb_l] - vw) & (fb_t != labels)
+    vld = torch.arange(labels.shape[0], device=labels.device) < n
+    kw = {}
+    if parent is not None:
+        kw = dict(npar=parent[nl], opar=parent[lab_i])
+    return bal_scores_ref(nlab, ell_w, block_w[nl], l_max[nl], labels, vw,
+                          over_own.to(torch.int32), vld.to(torch.int32),
+                          fb_t, fb_ok.to(torch.int32), salt, **kw)
 
 
 def greedy_pick_ref(vals, tgt_blk, src_blk, cand_w, block_w, l_max):

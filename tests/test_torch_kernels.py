@@ -12,7 +12,9 @@ made from a numpy seed:
 * ``lp_move`` (both admission forms) to ``lp_move_chunk_ref``;
 * ``seg_merge`` to the Pallas ``seg_merge`` in interpret mode and to the
   composed ``seg_merge_ref``; the fused dedup to ``dedup_arcs``;
-* ``bal_scores`` (restricted or not) to ``bal_scores_ref``;
+* ``bal_scores`` (restricted or not; its own gathers from the ELL ids and
+  the block tables) to ``bal_scores_ref`` fed by numpy gathers of the same
+  inputs, and the fused round's scores to ``core.balance.balance_gains``;
 * ``greedy_pick`` to the Pallas ``greedy_pick`` in interpret mode and to
   ``greedy_pick_ref``.
 
@@ -320,52 +322,141 @@ def test_fused_dedup_raises_outside_int32_instead_of_falling_back():
 # bal_scores / greedy_pick
 # ---------------------------------------------------------------------------
 
-def _bal_inputs(seed, k, restricted, R=64, D=96):
+def _bal_inputs(seed, K, restricted, R=64, D=96, n=None, hub=False,
+                weights=(1, 6)):
+    """``bal_scores`` operands in the kernel's form: ELL ids (-1 lanes
+    anywhere in a row, rows ``>= n`` as given) and weights, the rows'
+    blocks and vertex weights, the (K,) block tables. Returns (args, salt,
+    kw) of the wrapper. ``hub``: row 3 has all D lanes valid."""
     rng = np.random.default_rng(seed)
-    nlab = rng.integers(0, k, (R, D)).astype(np.int32)
-    nlab[rng.random((R, D)) < 0.25] = -1
-    nlab[-4:] = -1
-    nw = np.where(nlab >= 0, rng.integers(1, 6, (R, D)), 0).astype(np.int32)
-    nbw = rng.integers(0, 40, (R, D)).astype(np.int32)
-    nlm = rng.integers(10, 40, (R, D)).astype(np.int32)
-    cols = [rng.integers(0, k, R), rng.integers(1, 4, R),
-            (rng.random(R) < 0.5), np.arange(R) < R - 4,
-            rng.integers(0, k, R), (rng.random(R) < 0.5)]
-    cols = [c.astype(np.int32) for c in cols]
+    n = R - 4 if n is None else n
+    ell_idx = rng.integers(0, R, (R, D))
+    ell_idx[rng.random((R, D)) < 0.25] = -1
+    if hub:
+        ell_idx[3] = rng.integers(0, R, D)
+    ell_w = np.where(ell_idx >= 0, rng.integers(*weights, (R, D)), 0)
+    labels = rng.integers(0, K, R)
+    labels[rng.random(R) < 0.4] = 0              # one crowded block
+    vw = rng.integers(1, 4, R)
+    bw = rng.integers(0, 40, K)
+    lm = rng.integers(10, 40, K)
+    fb = rng.integers(0, K, K)
+    args = [t32(x) for x in (ell_idx, ell_w, labels, vw, bw, lm, fb)]
     salt = int(rng.integers(0, 2**32))
     kw = {}
     if restricted:
-        par = rng.integers(0, max(1, k // 2), k + 1).astype(np.int32)
-        kw = {"npar": np.where(nlab >= 0, par[np.maximum(nlab, 0)],
-                               -2).astype(np.int32),
-              "opar": par[cols[0]]}
-    return [nlab, nw, nbw, nlm] + cols, salt, kw
+        kw["parent"] = t32(rng.integers(0, max(1, K // 2), K))
+    return args + [n], salt, kw
+
+
+def _bal_reference(args, salt, kw):
+    """The JAX ``bal_scores_ref`` on the same inputs, its operands gathered
+    with numpy."""
+    idx, w, labels, vw, bw, lm, fb = (a.numpy() for a in args[:7])
+    n = args[7]
+    valid = idx >= 0
+    nlab = np.where(valid, labels[np.maximum(idx, 0)], -1).astype(np.int32)
+    nl = np.maximum(nlab, 0)
+    fb_t = fb[labels]
+    cols = [labels, vw, bw[labels] > lm[labels], np.arange(len(labels)) < n,
+            fb_t, (bw[fb_t] <= lm[fb_t] - vw) & (fb_t != labels)]
+    jargs = [jnp.asarray(x) for x in (nlab, w, bw[nl], lm[nl])]
+    jargs += [jnp.asarray(c.astype(np.int32)[:, None]) for c in cols]
+    jargs.append(jnp.asarray(np.array([[salt]], dtype=np.uint32)))
+    jkw = {}
+    if "parent" in kw:
+        par = kw["parent"].numpy()
+        jkw = {"npar": jnp.asarray(par[nl]),
+               "opar": jnp.asarray(par[labels][:, None])}
+    rel, tgt = ref_bal_ref.bal_scores_ref(*jargs, **jkw,
+                                          restricted="parent" in kw)
+    return np.asarray(rel)[:, 0], np.asarray(tgt)[:, 0]
+
+
+def _check_bal_scores(args, salt, kw):
+    rel, tgt = bal_round.bal_scores(*args, salt, **kw)
+    r_rel, r_tgt = _bal_reference(args, salt, kw)
+    assert rel.dtype == torch.float32 and tgt.dtype == torch.int32
+    # exact: same int32 gain, same f32 convert / max / one mul or div
+    np.testing.assert_array_equal(rel.numpy(), r_rel)
+    np.testing.assert_array_equal(tgt.numpy(), r_tgt)
+    assert np.all(rel.numpy()[args[7]:] == -np.inf)
+    return rel
 
 
 @pytest.mark.parametrize("restricted", [False, True])
 @pytest.mark.parametrize("seed,k", [(0, 2), (1, 9), (2, 32)])
 def test_bal_scores_plain_matches_reference(restricted, seed, k):
-    arrs, salt, kw = _bal_inputs(seed, k, restricted)
-    jargs = [jnp.asarray(a) for a in arrs[:4]]
-    jargs += [jnp.asarray(c[:, None]) for c in arrs[4:]]
-    jargs.append(jnp.asarray(np.array([[salt]], dtype=np.uint32)))
-    jkw = {}
-    if restricted:
-        jkw = {"npar": jnp.asarray(kw["npar"]),
-               "opar": jnp.asarray(kw["opar"][:, None])}
-    r_rel, r_tgt = ref_bal_ref.bal_scores_ref(*jargs, **jkw,
-                                              restricted=restricted)
-    rel, tgt = bal_round.bal_scores(*(t32(a) for a in arrs), salt,
-                                    **{k_: t32(v) for k_, v in kw.items()})
-    assert rel.dtype == torch.float32
-    # exact: same int32 gain, same f32 convert / max / one mul or div
-    np.testing.assert_array_equal(rel.numpy(), np.asarray(r_rel)[:, 0])
-    np.testing.assert_array_equal(tgt.numpy(), np.asarray(r_tgt)[:, 0])
-    assert np.all(rel.numpy()[-4:] == -np.inf)
+    rel = _check_bal_scores(*_bal_inputs(seed, k, restricted))
+    assert np.isfinite(rel.numpy()).any()       # some rows do move
 
 
+# (seed, K, _bal_inputs options) of the kernel's edge cases
+BAL_CASES = {
+    "holes": (3, 24, {}),                          # -1 lanes anywhere
+    "hub_256": (4, 16, dict(D=256, hub=True)),     # a 256-lane hub row
+    "k_beyond_4096": (5, 5000, dict(R=96)),
+    "rows_beyond_n": (6, 12, dict(n=29)),          # rows >= n keep lanes
+    "wrapping_weights": (7, 6, dict(weights=(2**29, 2**30))),
+}
+
+
+@pytest.mark.parametrize("restricted", [False, True])
+@pytest.mark.parametrize("case", list(BAL_CASES))
+def test_bal_scores_plain_matches_reference_cases(case, restricted):
+    seed, K, opts = BAL_CASES[case]
+    args, salt, kw = _bal_inputs(seed, K, restricted, **opts)
+    if case == "k_beyond_4096":       # the tables' far end is reached
+        args[2][:8] = torch.arange(K - 8, K, dtype=torch.int32)
+    _check_bal_scores(args, salt, kw)
+
+
+def test_fused_round_scores_match_the_composed_gains():
+    """The fused round's scores (fallback table + ``bal_scores`` on the
+    ELL form) equal ``core.balance.balance_gains`` on the sorted arc slab
+    of the same graph, restricted or not."""
+    from repro_torch.core import balance as t_balance
+    from repro_torch.core import lp as t_lp
+    from repro_torch.graphs import generators
+    from repro_torch.kernels.bal_round import ops as bal_ops
+
+    g = generators.make("rgg2d", 500, 8.0, seed=3)
+    chunks = t_lp.build_chunks(g, 1)
+    n_pad = chunks.n_pad
+    rng = np.random.default_rng(1)
+    k = 8
+    labels = np.zeros(n_pad + 1, dtype=np.int32)
+    labels[:g.n] = np.where(rng.random(g.n) < 0.5, 0,
+                            rng.integers(0, k, g.n))
+    vw = np.zeros(n_pad + 1, dtype=np.int32)
+    vw[:g.n] = g.vweights
+    bw = np.bincount(labels[:g.n], weights=vw[:g.n], minlength=k)
+    lm = np.full(k, int(bw.mean() * 1.05), dtype=np.int32)
+    par = np.array([0, 0, 1, 1, 2, 2, 3, 3], dtype=np.int32)
+    idx, ew = bal_ops.build_balance_ell(g, n_pad)
+    src, dst, w = (t32(x[0]) for x in (chunks.src, chunks.dst, chunks.w))
+    lab_t, vw_t, bw_t, lm_t, par_t = (t32(x) for x in (labels, vw, bw, lm,
+                                                       par))
+    lab_dst = lab_t[dst.long()]
+    order = t_lp.sort2(src, lab_dst)
+    valid = torch.arange(n_pad + 1) < g.n
+    for restricted in (False, True):
+        want = t_balance.balance_gains(
+            lab_t, src[order], lab_dst[order], w[order], bw_t, lm_t, par_t,
+            vw_t, 11, n_pad, valid, restricted=restricted)
+        got = bal_ops.fused_round_scores(
+            lab_t, bw_t, lm_t, par_t, t32(idx), t32(ew), vw_t, g.n, 11,
+            restricted=restricted)
+        assert np.isfinite(want[0].numpy()).any()
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# (4, ...): M beyond one of the kernel's 512-entry passes; (5, ...): a table
+# far beyond anything a CTA could stage (4 MB)
 @pytest.mark.parametrize("seed,M,K", [(0, 64, 16), (1, 128, 64),
-                                      (2, 7, 3), (3, 128, 8192)])
+                                      (2, 7, 3), (3, 128, 8192),
+                                      (4, 1300, 300), (5, 64, 2**20)])
 def test_greedy_pick_plain_matches_pallas_and_oracle(seed, M, K):
     rng = np.random.default_rng(seed)
     vals = np.sort(rng.standard_normal(M).astype(np.float32))[::-1].copy()
@@ -386,6 +477,30 @@ def test_greedy_pick_plain_matches_pallas_and_oracle(seed, M, K):
         np.testing.assert_array_equal(bw_out.numpy(), np.asarray(want_bw))
 
 
+@pytest.mark.parametrize("K", [1, 37])
+def test_greedy_pick_plain_clamps_pool_ids_like_the_oracle(K):
+    """Pool ids at or beyond K are read at K - 1 and never written, as in
+    the JAX ``greedy_pick_ref`` (whose jnp indexing would wrap a negative
+    id, where the port clamps it to 0: the balancer gives only ids in
+    [0, K))."""
+    rng = np.random.default_rng(K)
+    M = 96
+    vals = np.sort(rng.standard_normal(M).astype(np.float32))[::-1].copy()
+    tgt = rng.integers(0, K + 3, M).astype(np.int32)
+    src = rng.integers(0, K + 3, M).astype(np.int32)
+    cw = rng.integers(-4, 5, M).astype(np.int32)   # K = 1 needs c < 0
+    bw = rng.integers(0, 60, K).astype(np.int32)
+    lm = rng.integers(10, 50, K).astype(np.int32)
+    bw[0] = lm[0] + 3                                # block 0 over budget
+    acc, bw_out = bal_round.greedy_pick(torch.from_numpy(vals), t32(tgt),
+                                        t32(src), t32(cw), t32(bw), t32(lm))
+    r_acc, r_bw = ref_bal_ref.greedy_pick_ref(
+        *(jnp.asarray(x) for x in (vals, tgt, src, cw, bw, lm)))
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(r_acc))
+    np.testing.assert_array_equal(bw_out.numpy(), np.asarray(r_bw))
+    assert acc.numpy().any()
+
+
 # ---------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain version; nothing else falls back
 # ---------------------------------------------------------------------------
@@ -393,7 +508,7 @@ def test_greedy_pick_plain_matches_pallas_and_oracle(seed, M, K):
 def _small_calls(device):
     nlab, nw, ncw, _, own, vw, v0, salt, nl, W = _move_inputs(9, R=8, D=4)
     src, dst, w, _ = _records(9, 16, 4)
-    arrs, bsalt, _ = _bal_inputs(9, 4, False, R=8, D=4)
+    bargs, bsalt, _ = _bal_inputs(9, 4, False, R=8, D=4)
     vals = torch.zeros(4, dtype=torch.float32, device=device)
     i4 = torch.zeros(4, dtype=torch.int32, device=device)
     i8 = torch.zeros(8, dtype=torch.int32, device=device)
@@ -415,7 +530,7 @@ def _small_calls(device):
         **{f"seg_merge_{case}": functools.partial(_seg_call, on, case, L, ids)
            for case, L, ids in SEG_CASES[4:] + [("big", 2**22 + 1, 136674)]},
         "bal_scores": lambda: bal_round.bal_scores(
-            *(on(a) for a in arrs), bsalt),
+            *(a.to(device) for a in bargs[:7]), bargs[7], bsalt),
         "greedy_pick": lambda: bal_round.greedy_pick(vals, i4, i4, i4, i8,
                                                      i8),
         "lp_gain": lambda: lp_gain.lp_gain_ell(
