@@ -88,7 +88,27 @@ exits non-zero if any one fails:
      timed over 8 index sets in turn so that the gathered rows do not
      stay in L2 (the library call alike), with the checked wrapper's
      time, its device launches per call, its device time L2-cold and
-     L2-warm and the no-stream-wait check printed beside it.
+     L2-warm and the no-stream-wait check printed beside it;
+  7. the unconstrained refinement tier, the baselines, the CLI and a
+     session. First ``PartitionSession(devices=1, max_workers=4)
+     .run_batch`` of rgg2d n=2000 (graph seeds 0-2, k=8, C=64, and seed 0
+     again with ``quality="best"``) with the kernels loaded anew from a
+     fresh build directory, so that the build lock meets concurrent first
+     loads: nvcc must run at most once a source, every result must equal
+     a solo run's and the reference's cut. Then ``Partitioner(backend=
+     "single").run`` of phase 4's request with ``refine="unconstrained"``
+     (launch counts zeroed just before and read just after; every
+     main-path kernel launched): cut, feasibility, the per-level trace and
+     every ``refine-mode`` record (penalty, repair rounds) must equal the
+     JAX reference's (``benchmarks/torch_reference_anchors.py``), printed
+     with its wall and per-phase times beside phase 4's and every
+     rebalance call's rounds and seconds (the afterburner's), and each of the
+     four kernels held to its plain version on the largest input this run
+     gave it; ``Partitioner.compare`` of the same request against
+     ``plain_mgp`` and ``single_level_lp`` must give the reference's cuts,
+     feasible; ``python -m repro_torch.launch.partition --family rgg2d
+     --n 4000 --k 16 --compare --trace`` must exit 0 with three summary
+     lines of the reference CLI's cuts.
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -96,9 +116,11 @@ port's sources beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -115,6 +137,37 @@ FULL_N = 1 << 20
 # rgg2d 2^20, k=16, preset fast: the JAX reference's cut on this tree
 # (tests/test_torch_e2e.py::test_full_size_on_gpu_matches_reference)
 FULL_CUT = 15465
+# the same request with refine="unconstrained", and its comparison: the
+# JAX reference's answers on the CPU (kernel="composed"), from
+# benchmarks/torch_reference_anchors.py. The trace as (phase, level, n, m,
+# coarse_n or blocks, W or cut); REPAIR_ROUNDS per refine-mode record
+# (stage, level), each with the penalty schedule [0.0, 0.5]
+UNCONSTRAINED_CUT = 15308
+UNCONSTRAINED_TRACE = (
+    ("coarsen", 0, 1048576, 8378246, 136674, 1966),
+    ("coarsen", 1, 136674, 553112, 39641, 1966),
+    ("coarsen", 2, 39641, 175650, 13227, 1966),
+    ("coarsen", 3, 13227, 60980, 5129, 5242),
+    ("coarsen", 4, 5129, 21072, 2343, 15728),
+    ("initial", None, 2343, 6818, 2, 1050),
+    ("uncoarsen", 0, 5129, 21072, 2, 986),
+    ("uncoarsen", 1, 13227, 60980, 8, 6454),
+    ("uncoarsen", 2, 39641, 175650, 16, 15988),
+    ("uncoarsen", 3, 136674, 553112, 16, 15688),
+    ("uncoarsen", 4, 1048576, 8378246, 16, 15310),
+    ("final", None, 1048576, 8378246, 16, UNCONSTRAINED_CUT),
+)
+REPAIR_ROUNDS = {("initial", None): 0, ("uncoarsen", 0): 0,
+                 ("uncoarsen", 1): 0, ("uncoarsen", 2): 2,
+                 ("uncoarsen", 3): 0, ("uncoarsen", 4): 0,
+                 ("final", None): 0}
+BASELINE_CUTS = {"plain_mgp": 8781, "single_level_lp": 724032}
+# the reference CLI: rgg2d 4000 (seed 0), k=16, --compare
+CLI_CUTS = {"single": 916, "plain_mgp": 876, "single_level_lp": 2759}
+# rgg2d 2000, k=8, C=64: graph seed -> the reference's cut; seed 0 with
+# quality="best" gives 186
+SESSION_CUTS = {0: 169, 1: 335, 2: 212}
+SESSION_BEST_CUT = 186
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM, non-tensor 32-bit rate
 
@@ -673,9 +726,11 @@ def candidate_count(args, kw):
 # phases 3-4: the anchor and the main path
 # ---------------------------------------------------------------------------
 
-def run_partition(api, spec, k, kernel, *, config=None, preset="fast"):
+def run_partition(api, spec, k, kernel, *, config=None, preset="fast",
+                  refine=None):
     req = api.PartitionRequest(graph=spec, k=k, epsilon=0.03,
-                               preset=preset, config=config, kernel=kernel)
+                               preset=preset, config=config, kernel=kernel,
+                               refine=refine)
     return api.Partitioner(backend="single").run(req)
 
 
@@ -777,6 +832,8 @@ class HostTimers:
 
         def closing(trace, **record):
             trace_event(trace, **record)
+            if "time_s" not in record:      # a refine-mode record
+                return
             self.phases.append((record.get("phase"), record.get("level"),
                                 record.get("n"), record.get("time_s"),
                                 self.current))
@@ -842,7 +899,7 @@ def phase_main_path(torch, api, build, candidates, seg_calls):
           f"{FULL_CUT}, feasible")
     for name in MAIN_PATH:
         check(launches[name] > 0, f"main path: {name} was never launched")
-    return g, launches, res.assignment
+    return g, launches, res, wall
 
 
 def skewed_rebalance(g, assignment, dev) -> dict:
@@ -1629,6 +1686,232 @@ def phase_off_main(torch, build, g, assignment, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the unconstrained tier, the baselines, the CLI and a session
+# ---------------------------------------------------------------------------
+
+def strip_times(trace):
+    return [{k: v for k, v in rec.items() if k != "time_s"}
+            for rec in trace]
+
+
+def unconstrained_trace():
+    """The reference's trace of the unconstrained run, wall times apart."""
+    names = {"coarsen": ("coarse_n", "W")}
+    out = []
+    for phase, level, n, m, a, b in UNCONSTRAINED_TRACE:
+        rec = {"phase": phase}
+        if level is not None:
+            rec["level"] = level
+        ka, kb = names.get(phase, ("blocks", "cut"))
+        rec.update({"n": n, "m": m, ka: a, kb: b})
+        out.append(rec)
+        if phase != "coarsen":
+            mode = {"phase": "refine-mode", "stage": phase,
+                    "mode": "unconstrained"}
+            if level is not None:
+                mode["level"] = level
+            mode.update(penalty=[0.0, 0.5],
+                        repair_rounds=REPAIR_ROUNDS[(phase, level)])
+            out.append(mode)
+    return out
+
+
+class NvccRuns:
+    """Records the source of every nvcc process ``kernels._build`` starts
+    while it is entered."""
+
+    def __init__(self, build):
+        self.build = build
+        self.sources = []
+        self._popen = build.subprocess.Popen
+
+    def __enter__(self):
+        popen = self._popen
+
+        def counted(cmd, *args, **kw):
+            self.sources.append(Path(cmd[-1]).stem)
+            return popen(cmd, *args, **kw)
+
+        self.build.subprocess.Popen = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.build.subprocess.Popen = self._popen
+
+
+def session_first_loads(torch, api, build):
+    """A threaded session whose requests load every kernel anew, from a
+    fresh build directory: nvcc must run at most once a source, and every
+    result must equal a solo run's and the reference's cut."""
+    from repro_torch.core.deep_mgp import PartitionerConfig
+
+    fresh = build.BUILD_DIR / f"session-{os.getpid()}"
+    with build._LOCK:            # forget the libraries phase 1 loaded
+        build.BUILD_DIR = fresh
+        build._libs.clear()
+    cfg = PartitionerConfig(contraction_limit=64)
+    reqs = [api.PartitionRequest(graph=api.GraphSpec("rgg2d", 2000, 8.0,
+                                                     seed=s),
+                                 k=8, config=cfg) for s in SESSION_CUTS]
+    reqs.append(dataclasses.replace(reqs[0], quality="best"))
+    with NvccRuns(build) as nvcc:
+        t0 = time.perf_counter()
+        with api.PartitionSession(devices=1, max_workers=4) as sess:
+            batch = sess.run_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    say(f"  session: {len(reqs)} requests on 4 threads, kernels loaded "
+        f"from a fresh build directory, {wall:.3f} s (builds included); "
+        f"nvcc runs {sorted(nvcc.sources)}")
+    check(nvcc.sources and len(nvcc.sources) == len(set(nvcc.sources)),
+          f"session: a library was built more than once: {nvcc.sources}")
+    check(not list(fresh.glob("*.tmp")), "session: a build left a .tmp")
+    solo = api.Partitioner().run_batch(reqs)
+    want = [*SESSION_CUTS.values(), SESSION_BEST_CUT]
+    for r, s, cut in zip(batch, solo, want):
+        check(np.array_equal(r.assignment, s.assignment)
+              and strip_times(r.trace) == strip_times(s.trace),
+              f"session: {r.request.graph} differs from its solo run")
+        check(r.feasible and r.cut == cut,
+              f"session: cut {r.cut}, feasible {r.feasible}; the "
+              f"reference gives {cut}, feasible")
+    say(f"  session cuts {[r.cut for r in batch]} = solo runs = the "
+        f"reference's; stats {sess.stats()}")
+
+
+def phase_unconstrained(torch, api, build, g, lp_run, lp_wall, lp_launches):
+    say(f"== phase 7: unconstrained tier at rgg2d {FULL_N}, the baselines, "
+        "the CLI and a session")
+    from repro_torch.core import balance, unconstrained
+    from repro_torch.kernels.bal_round import ops as bal_ops
+    from repro_torch.kernels.bal_round import ref as bal_ref
+    from repro_torch.kernels.lp_move import ops as lp_ops
+    from repro_torch.kernels.lp_move import ref as lp_ref
+    from repro_torch.kernels.seg_merge import ops as seg_ops
+    from repro_torch.kernels.seg_merge import ref as seg_ref
+
+    session_first_loads(torch, api, build)
+
+    capture = Capture(torch)
+    for module, attr, name in ((lp_ops, "lp_move_chunk", "lp_move"),
+                               (seg_ops, "seg_merge", "seg_merge"),
+                               (bal_ops, "bal_scores", "bal_scores"),
+                               (bal_ops, "greedy_pick", "greedy_pick")):
+        capture.wrap(module, attr, name)
+    timers = HostTimers()
+    timers.install()
+    # the unconstrained pass's own reorder, and every rebalance call's
+    # (n, rounds, wall seconds): the afterburners and the rebalances
+    # before each pass
+    timers.wrap(unconstrained, "permute", "permute")
+    timers.wrap(unconstrained, "degree_bucket_order", "degree_bucket_order")
+    rebalances = []
+    rebalance = balance.rebalance
+
+    def timed_rebalance(g_, *args, **kw):
+        kw["stats"] = stats = {} if kw.get("stats") is None else kw["stats"]
+        t0 = time.perf_counter()
+        out = rebalance(g_, *args, **kw)
+        rebalances.append((g_.n, stats["rounds"], time.perf_counter() - t0))
+        return out
+
+    balance.rebalance = timed_rebalance
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = run_partition(api, g, 16, "fused", refine="unconstrained")
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # this path's run and no other
+        wall = time.perf_counter() - t0
+    finally:
+        balance.rebalance = rebalance
+        timers.restore()
+        capture.restore()
+    say(f"  unconstrained: cut {res.cut} feasible {res.feasible} wall "
+        f"{wall:.3f} s (lp, phase 4: cut {lp_run.cut}, wall {lp_wall:.3f} s)")
+    say(f"  launches unconstrained {json.dumps(launches, sort_keys=True)}")
+    say(f"  launches lp            {json.dumps(lp_launches, sort_keys=True)}")
+    lp_times = {(r["phase"], r.get("level")): r["time_s"]
+                for r in lp_run.trace if "time_s" in r}
+    for rec in res.trace:
+        if rec["phase"] == "refine-mode":
+            say(f"    refine-mode {rec['stage']} level {rec.get('level')}: "
+                f"penalty {rec['penalty']}, repair rounds "
+                f"{rec['repair_rounds']}")
+        else:
+            key = (rec["phase"], rec.get("level"))
+            say(f"  {key[0]} level {key[1]} n={rec['n']}: time_s "
+                f"{rec['time_s']} (lp {lp_times.get(key)})")
+    timers.report()
+    ran = [(n, r, round(secs, 4)) for n, r, secs in rebalances if r]
+    say(f"  rebalance calls {len(rebalances)}, "
+        f"{sum(secs for *_, secs in rebalances):.4f} s in all; those that "
+        f"ran rounds (n, rounds, s): {ran}")
+    check(res.feasible and res.cut == UNCONSTRAINED_CUT,
+          f"unconstrained: cut {res.cut}, feasible {res.feasible}; the "
+          f"reference gives {UNCONSTRAINED_CUT}, feasible")
+    check(strip_times(res.trace) == unconstrained_trace(),
+          "unconstrained: the trace (refine-mode records included) differs "
+          "from the reference's")
+    for name in MAIN_PATH:
+        check(launches[name] > 0,
+              f"unconstrained path: {name} was never launched")
+    plain = {"lp_move": lp_ref.lp_move_chunk_ref,
+             "seg_merge": seg_ref.seg_merge_ref,
+             "bal_scores": bal_ref.bal_scores_ell_ref,
+             "greedy_pick": bal_ref.greedy_pick_ref}
+    for name in MAIN_PATH:
+        _, fn, args, kw = capture.inputs[name]
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        compare(name, got, plain[name](*args, **kw))
+        ms = cuda_ms(torch, lambda: fn(*args, **kw), 20)
+        shape = " ".join(str(tuple(t.shape)) for t in args
+                         if hasattr(t, "shape"))
+        say(f"  {name} at this path's largest call {shape}: bit-identical "
+            f"to its plain version; kernel {ms:.4f} ms")
+    del capture
+
+    req = api.PartitionRequest(graph=g, k=16, epsilon=0.03, preset="fast",
+                               kernel="fused", refine="unconstrained")
+    build.reset_launches()
+    results = api.Partitioner(backend="single").compare(
+        req, list(BASELINE_CUTS))
+    torch.cuda.synchronize()
+    cmp_launches = dict(build.LAUNCHES)
+    for r in results:
+        say(f"  compare {r.backend}: cut {r.cut} feasible {r.feasible} "
+            f"wall {r.time_s:.3f} s")
+        check(r.feasible and r.cut == BASELINE_CUTS[r.backend],
+              f"compare {r.backend}: cut {r.cut}, feasible {r.feasible}; "
+              f"the reference gives {BASELINE_CUTS[r.backend]}, feasible")
+    say(f"  deep MGP on the same request: lp cut {lp_run.cut} "
+        f"({lp_wall:.3f} s), unconstrained {res.cut} ({wall:.3f} s); "
+        "launches of the comparison "
+        f"{json.dumps(cmp_launches, sort_keys=True)}")
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.partition", "--family",
+           "rgg2d", "--n", "4000", "--k", "16", "--compare", "--trace"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                 PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0,
+          f"CLI exit {out.returncode}: {out.stderr[-2000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines()]
+    summaries = [x for x in lines if "backend" in x]
+    cuts = {x["backend"]: x["cut"] for x in summaries}
+    say(f"  CLI {' '.join(cmd[1:])}: exit 0, {len(lines)} lines, "
+        f"{time.perf_counter() - t0:.2f} s; cuts {cuts}")
+    check(len(summaries) == 3 and cuts == CLI_CUTS
+          and all(x["feasible"] for x in summaries),
+          f"CLI: summaries {summaries}; the reference CLI gives "
+          f"{CLI_CUTS}, feasible")
+    return {"main": lp_launches, "unconstrained": launches,
+            "compare": cmp_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1674,13 +1957,20 @@ def main() -> int:
     capture.wrap(bal_ops, "bal_scores", "bal_scores")
     capture.wrap(bal_ops, "greedy_pick", "greedy_pick")
     try:
-        g, launches, assignment = phase_main_path(
+        g, launches, lp_run, lp_wall = phase_main_path(
             torch, api, build, candidates, seg_calls)
     finally:
         capture.restore()
+    assignment = lp_run.assignment
     kernels = phase_kernels(torch, build, capture, launches, g, assignment,
                             dev)
     kernels += phase_off_main(torch, build, g, assignment, dev)
+    by_path = phase_unconstrained(torch, api, build, g, lp_run, lp_wall,
+                                  launches)
+    for row in kernels:
+        if row["name"] in MAIN_PATH:
+            row["launches_by_path"] = {p: c[row["name"]]
+                                       for p, c in by_path.items()}
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port pulled in the JAX package")
     say(f"total {time.perf_counter() - t_all:.1f} s")

@@ -4,11 +4,17 @@
 A backend is a callable ``(g, req, ctx) -> assignment`` where ``ctx`` is
 a ``BackendContext`` carrying the torch device, an optional trace list
 ``partition`` appends per-level records to, and optional precomputed
-level-0 labels. This slice of the port registers ``single`` (the
-single-process deep MGP of ``core.deep_mgp``); the distributed backends
-and the baselines are later slices. The ``auto`` policy is the
+level-0 labels. Built-ins:
+
+  * ``single``          — single-process deep MGP (``core.deep_mgp``)
+  * ``plain_mgp``       — classic multilevel baseline
+  * ``single_level_lp`` — XtraPuLP-like single-level LP baseline
+
+The baselines being ordinary backends is what makes ``--compare`` "run
+the same request against N backends". The ``auto`` policy is the
 reference's, so a request that it sends to ``dist`` or ``dist-grid``
-raises until those backends are ported (ROADMAP.md, queue 1 item 5).
+raises until the distributed engine is ported (ROADMAP.md, queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -18,12 +24,17 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core import baselines
 from ..core.deep_mgp import partition as _single_partition
 from ..graphs.format import Graph
 
 BackendFn = Callable[..., np.ndarray]
 
 _REGISTRY: Dict[str, BackendFn] = {}
+# names safe to serve inside a coalesced/stacked batch: deterministic
+# pure single-device backends. Custom backends are excluded unless
+# registered with batchable=True.
+_BATCHABLE: set = set()
 
 # below this many vertices per PE, sharding overhead dominates and the
 # auto policy stays single-process (the reference's constants)
@@ -34,15 +45,29 @@ GRID_ROUTING_MIN_DEVICES = 16
 DISTRIBUTED = ("dist", "dist-grid")
 
 
-def register_backend(name: str, fn: Optional[BackendFn] = None):
-    """Register ``fn`` under ``name``; usable as a decorator."""
+def register_backend(name: str, fn: Optional[BackendFn] = None, *,
+                     batchable: bool = False):
+    """Register ``fn`` under ``name``; usable as a decorator.
+
+    ``batchable=True`` declares the backend safe for batched dispatch
+    (pure, deterministic, single-device); the default keeps custom
+    backends on the solo path."""
     def _do(f: BackendFn) -> BackendFn:
         if not name or not isinstance(name, str):
             raise ValueError("backend name must be a non-empty str, "
                              f"got {name!r}")
         _REGISTRY[name] = f
+        if batchable:
+            _BATCHABLE.add(name)
+        else:
+            _BATCHABLE.discard(name)
         return f
     return _do(fn) if fn is not None else _do
+
+
+def is_batchable(name: str) -> bool:
+    """True when ``name`` was registered as safe for batched dispatch."""
+    return name in _BATCHABLE
 
 
 def get_backend(name: str) -> BackendFn:
@@ -85,13 +110,33 @@ def resolve_backend(req, n_graph_vertices: int) -> str:
     return "single"
 
 
+def required_devices(req, n_graph_vertices: int) -> int:
+    """PE count the request's *resolved* backend needs: its ``devices``
+    field for the distributed backends, 1 for everything else. Pure
+    (same inputs as ``resolve_backend``)."""
+    name = resolve_backend(req, n_graph_vertices)
+    return max(1, req.devices) if name in DISTRIBUTED else 1
+
+
 # ---------------------------------------------------------------------------
 # built-in backends
 # ---------------------------------------------------------------------------
 
-@register_backend("single")
+@register_backend("single", batchable=True)
 def _single(g: Graph, req, ctx: BackendContext) -> np.ndarray:
     return _single_partition(g, req.k, req.resolve_config(),
                              trace=ctx.trace,
                              level0_labels=ctx.level0_labels,
                              device=ctx.device)
+
+
+@register_backend("plain_mgp", batchable=True)
+def _plain_mgp(g: Graph, req, ctx: BackendContext) -> np.ndarray:
+    return baselines.plain_mgp(g, req.k, cfg=req.resolve_config(),
+                               device=ctx.device)
+
+
+@register_backend("single_level_lp", batchable=True)
+def _single_level_lp(g: Graph, req, ctx: BackendContext) -> np.ndarray:
+    return baselines.single_level_lp(g, req.k, eps=req.epsilon,
+                                     seed=req.seed, device=ctx.device)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterable, List, Optional, Union
+from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -54,7 +54,18 @@ class Partitioner:
 
     def run_batch(self, requests: Iterable[PartitionRequest]
                   ) -> List[PartitionResult]:
+        """Sequential batch; ``PartitionSession`` runs these concurrently."""
         return [self.run(r) for r in requests]
+
+    def compare(self, request: PartitionRequest,
+                backends: Sequence[str]) -> List[PartitionResult]:
+        """Run the *same* request against several backends — the
+        ``--compare`` flag is exactly this. A GraphSpec is materialized
+        once, not once per backend."""
+        request = dataclasses.replace(request,
+                                      graph=request.resolve_graph())
+        return [self.run(dataclasses.replace(request, backend=b))
+                for b in backends]
 
 
 def partition(graph: Union[Graph, GraphSpec], k: int, device=None,

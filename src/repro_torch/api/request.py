@@ -48,13 +48,19 @@ class GraphSpec:
 class PartitionRequest:
     """One partitioning job, the reference's request field for field.
 
-    This slice of the port serves ``backend="single"`` only; ``"auto"``
-    resolves to it. ``contraction`` / ``weights`` / ``balance`` are the
-    reference's distributed memory-model knobs and are ignored by the
-    single backend. ``kernel`` picks the hot-loop implementation ("auto" |
-    "fused" | "composed") — results are bit-identical either way.
-    ``refine`` / ``quality`` select the refinement algorithm; only "lp"
-    (quality "fast") is ported so far.
+    The port serves the single-device backends (``single`` and the
+    baselines ``plain_mgp`` / ``single_level_lp``); ``"auto"`` resolves
+    to ``single`` unless the reference's policy picks a distributed
+    backend, which raises until it is ported. ``contraction`` /
+    ``weights`` / ``balance`` are the reference's distributed
+    memory-model knobs and are ignored by the single-device backends.
+    ``kernel`` picks the hot-loop implementation ("auto" | "fused" |
+    "composed") — results are bit-identical either way.
+
+    ``refine`` selects the refinement algorithm ("lp" | "unconstrained");
+    ``quality`` is the serving-facing spelling of the same choice
+    ("fast" -> lp, "best" -> unconstrained). An explicit ``refine``
+    always wins over ``quality``.
     """
     graph: Union[Graph, GraphSpec]
     k: int

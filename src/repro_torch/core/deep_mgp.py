@@ -4,8 +4,9 @@
 The level loop is host Python (dynamic level shapes) around per-level torch
 programs on one ``device``: LP clustering (``lp_move`` kernel or torch
 ops), contraction (``seg_merge`` kernel or numpy), host initial
-partitioning, and LP refinement + the exact balancer (``bal_round``
-kernels or torch ops) during uncoarsening.
+partitioning, and refinement (size-constrained LP, or the unconstrained
+tier with its afterburner) + the exact balancer (``bal_round`` kernels or
+torch ops) during uncoarsening.
 """
 from __future__ import annotations
 
@@ -53,8 +54,10 @@ class PartitionerConfig:
     # "fused" (CUDA kernels), "composed" (torch ops) — bit-identical
     # results either way
     kernel: str = "auto"
-    # refinement algorithm: "lp" (paper §4 size-constrained LP); the
-    # reference's "unconstrained" tier is not ported yet and raises
+    # refinement algorithm for the main per-level passes: "lp" (paper §4
+    # size-constrained LP) or "unconstrained" (Jet-style penalty-weighted
+    # search + afterburner repair, better cuts for more refinement time).
+    # The sibling-restricted extension pass always uses LP.
     refine: str = "lp"
 
     def validate(self) -> "PartitionerConfig":
@@ -106,6 +109,31 @@ def trace_event(trace: Optional[List[Dict]], **record) -> None:
     """Append one per-level record to ``trace`` (no-op when None)."""
     if trace is not None:
         trace.append(record)
+
+
+def _refine_stats(cfg: "PartitionerConfig",
+                  trace: Optional[List[Dict]]) -> Optional[Dict]:
+    """A stats dict for ``balance_and_refine`` when the trace wants a
+    ``refine-mode`` record; None keeps the default path allocation-free."""
+    if trace is not None and cfg.refine != "lp":
+        return {}
+    return None
+
+
+def _trace_refine_mode(trace: Optional[List[Dict]],
+                       cfg: "PartitionerConfig", stage: str,
+                       level: Optional[int],
+                       stats: Optional[Dict]) -> None:
+    """One ``refine-mode`` record per non-default refinement pass: the
+    mode, the penalty schedule applied, and how many afterburner rounds
+    the feasibility repair took."""
+    if stats is None:
+        return
+    rec: Dict = dict(phase="refine-mode", stage=stage, mode=cfg.refine)
+    if level is not None:
+        rec["level"] = level
+    rec.update(stats)
+    trace_event(trace, **rec)
 
 
 def ceil2(x: int) -> int:
@@ -293,16 +321,18 @@ def partition(g: Graph, k: int, cfg: Optional[PartitionerConfig] = None,
     part = partition_into_counts(G, counts, l_final, rng,
                                  cfg.ip_repetitions)
     block_k = np.asarray(counts, dtype=np.int64)
+    ref_stats = _refine_stats(cfg, trace)
     part = balance_and_refine(G, part, _l_vec(block_k, l_final),
                               num_iterations=cfg.refine_iterations,
                               num_chunks=cfg.num_chunks, seed=cfg.seed,
                               kernel=cfg.kernel, refine=cfg.refine,
-                              device=device)
+                              stats=ref_stats, device=device)
     if trace is not None:
         trace_event(trace, phase="initial", n=G.n, m=G.m,
                     blocks=int(block_k.shape[0]),
                     cut=metrics.edge_cut(G, part),
                     time_s=round(time.perf_counter() - t0, 6))
+        _trace_refine_mode(trace, cfg, "initial", None, ref_stats)
 
     # ---- uncoarsening: project, extend, refine (lines 7–9, 13–18) ------
     for lvl, (Gf, mapping) in enumerate(reversed(hierarchy)):
@@ -312,17 +342,19 @@ def partition(g: Graph, k: int, cfg: Optional[PartitionerConfig] = None,
         target = max(target, block_k.shape[0])
         part, block_k = extend_partition(Gf, part, block_k, k, l_final,
                                          cfg, rng, target, device=device)
+        ref_stats = _refine_stats(cfg, trace)
         part = balance_and_refine(Gf, part, _l_vec(block_k, l_final),
                                   num_iterations=cfg.refine_iterations,
                                   num_chunks=cfg.num_chunks,
                                   seed=uncoarsen_seed(cfg.seed, lvl),
                                   kernel=cfg.kernel, refine=cfg.refine,
-                                  device=device)
+                                  stats=ref_stats, device=device)
         if trace is not None:
             trace_event(trace, phase="uncoarsen", level=lvl, n=Gf.n,
                         m=Gf.m, blocks=int(block_k.shape[0]),
                         cut=metrics.edge_cut(Gf, part),
                         time_s=round(time.perf_counter() - t0, 6))
+            _trace_refine_mode(trace, cfg, "uncoarsen", lvl, ref_stats)
 
     # ---- final extension to exactly k blocks (omitted-case in Alg. 1) --
     t0 = time.perf_counter()
@@ -331,13 +363,15 @@ def partition(g: Graph, k: int, cfg: Optional[PartitionerConfig] = None,
     if block_k.shape[0] < k:  # blocks that cannot split further (tiny n)
         pad = k - block_k.shape[0]
         block_k = np.concatenate([block_k, np.ones(pad, dtype=np.int64)])
+    ref_stats = _refine_stats(cfg, trace)
     part = balance_and_refine(g, part, np.full(k, l_final, dtype=np.int64),
                               num_iterations=cfg.refine_iterations,
                               num_chunks=cfg.num_chunks, seed=cfg.seed + 17,
                               kernel=cfg.kernel, refine=cfg.refine,
-                              device=device)
+                              stats=ref_stats, device=device)
     if trace is not None:
         trace_event(trace, phase="final", n=g.n, m=g.m, blocks=k,
                     cut=metrics.edge_cut(g, part),
                     time_s=round(time.perf_counter() - t0, 6))
+        _trace_refine_mode(trace, cfg, "final", None, ref_stats)
     return part

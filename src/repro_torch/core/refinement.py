@@ -1,12 +1,16 @@
-"""k-way refinement (paper §4) — port of ``repro.core.refinement``.
+"""k-way refinement (paper §4 + the unconstrained tier) — port of
+``repro.core.refinement``.
 
 ``balance_and_refine`` is the per-level entry point: restore feasibility,
-improve with size-constrained LP, re-restore. It never returns an
-infeasible partition.
+improve, re-restore. The improvement pass is selected by the ``refine``
+knob — ``"lp"`` (default) is the paper's size-constrained LP;
+``"unconstrained"`` is the Jet-style penalty-weighted search of
+``core.unconstrained``, whose trailing rebalance acts as the feasibility
+*afterburner*. Either way it never returns an infeasible partition.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,18 +121,32 @@ def balance_and_refine(g: Graph,
                        seed: int = 0,
                        kernel: str = "auto",
                        refine: str = "lp",
+                       stats: Optional[Dict] = None,
                        device=None) -> np.ndarray:
     """Paper's BalanceAndRefine: restore feasibility, improve, re-restore.
 
-    Only ``refine="lp"`` is ported so far; ``"unconstrained"`` raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 6)."""
+    ``refine="unconstrained"`` swaps the improvement pass for the
+    penalty-weighted unconstrained search; the trailing rebalance then
+    acts as the feasibility afterburner, so the result satisfies the
+    budgets under either mode. ``stats`` (unconstrained mode only)
+    receives the ``penalty`` schedule and the afterburner's
+    ``repair_rounds``."""
     check_refine_mode(refine)
-    if refine == "unconstrained":
-        raise NotImplementedError(
-            "refine='unconstrained' (core/unconstrained.py) is not ported "
-            "to repro_torch yet: ROADMAP queue 1, item 6")
     part = bal.rebalance(g, part, l_max_vec, parent=parent, seed=seed,
                          kernel=kernel, device=device)
+    if refine == "unconstrained":
+        from .unconstrained import unconstrained_refine
+        part = unconstrained_refine(g, part, l_max_vec, parent=parent,
+                                    num_iterations=num_iterations,
+                                    num_chunks=num_chunks, seed=seed,
+                                    stats=stats, device=device)
+        repair: Dict = {}
+        part = bal.rebalance(g, part, l_max_vec, parent=parent,
+                             seed=seed + 1, kernel=kernel, stats=repair,
+                             device=device)
+        if stats is not None:
+            stats["repair_rounds"] = repair.get("rounds")
+        return part
     part = lp_refine(g, part, l_max_vec, parent=parent,
                      num_iterations=num_iterations,
                      num_chunks=num_chunks, seed=seed, device=device)

@@ -14,6 +14,11 @@ if it is not 0.
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on
 the card (never the plain-version calls): a run reads it to show which
 kernels its path went through.
+
+Building, loading and counting are safe under threads (a session runs
+requests on a thread pool): one lock spans ``load``'s check, build and
+``CDLL`` and all of ``build_all``, so concurrent first loads compile a
+library once; temporary build files are named by process and thread.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -39,15 +45,19 @@ LAUNCHES: Dict[str, int] = {"lp_move": 0, "seg_merge": 0, "bal_scores": 0,
                             "embedding_bag": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# guards BUILD_DIR's files, ``_libs`` and ``LAUNCHES``
+_LOCK = threading.Lock()
 
 
 def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] += 1
+    with _LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -75,6 +85,11 @@ def build_all(names=SOURCES) -> float:
     """Compile every library not built yet, one ``nvcc`` per source in
     parallel. Returns the wall seconds spent; raises on a failed build
     with the compiler's output."""
+    with _LOCK:
+        return _build_all(names)
+
+
+def _build_all(names) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -84,7 +99,7 @@ def build_all(names=SOURCES) -> float:
         if out.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         log = open(out.with_suffix(".log"), "w")
         procs.append((name, out, tmp, log, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
@@ -114,13 +129,17 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library ``name``; builds it first if needed. Every
     entry point returns ``int`` (a ``cudaError_t``)."""
     lib = _libs.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_all((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
     return lib
 
 

@@ -5,7 +5,8 @@ Each test builds one input from a numpy seed, hands it to both packages
 the integer results exactly: the LP clustering and refinement chunk loops,
 the fused clustering iteration (plain versions of the kernel on the CPU),
 the exact balancer (composed and fused), contraction, the host initial
-partitioner and the per-level ``balance_and_refine``.
+partitioner and the per-level ``balance_and_refine`` (both refinement
+tiers).
 """
 import numpy as np
 import pytest
@@ -301,9 +302,18 @@ def test_balance_and_refine_matches_reference(restricted):
         np.testing.assert_array_equal(got, want)
 
 
-def test_unconstrained_refinement_is_not_ported_yet():
-    _, h = graphs(n=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        refinement.balance_and_refine(h, np.zeros(h.n, np.int64),
-                                      np.full(2, h.n, np.int64),
-                                      refine="unconstrained", device=CPU)
+def test_unconstrained_balance_and_refine_matches_reference():
+    """The unconstrained tier in its sibling-restricted form, on the
+    inputs of the LP test above."""
+    g, h = graphs(seed=15)
+    k = 4
+    part, lv, parent = _refine_inputs(g, k, 15, True)
+    st_r, st_t = {}, {}
+    want = ref_refinement.balance_and_refine(
+        g, part, lv, parent=parent, num_iterations=3, num_chunks=4, seed=9,
+        kernel="composed", refine="unconstrained", stats=st_r)
+    got = refinement.balance_and_refine(
+        h, part, lv, parent=parent, num_iterations=3, num_chunks=4, seed=9,
+        kernel="fused", refine="unconstrained", stats=st_t, device=CPU)
+    np.testing.assert_array_equal(got, want)
+    assert st_t == st_r and st_t["penalty"] == [0.0, 0.3333, 0.6667]

@@ -184,19 +184,27 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_full_size_on_gpu_matches_reference(cuda_device):
+@pytest.mark.parametrize("refine", ["lp", "unconstrained"])
+def test_full_size_on_gpu_matches_reference(cuda_device, refine):
     """rgg2d at 2^20 vertices, k=16, preset fast: the port on the card
-    (CUDA kernels) against the JAX reference on the CPU. Both give cut
-    15465, feasible, over five coarsening levels."""
+    (CUDA kernels) against the JAX reference on the CPU (composed), under
+    both refinement tiers. ``lp`` gives cut 15465, feasible, over five
+    coarsening levels."""
     g = ref_generators.make("rgg2d", 1 << 20, 8.0, seed=17)
     assert (g.m, int(np.diff(g.indptr).max())) == (8378246, 24)
     ref = ref_api.Partitioner(backend="single").run(
-        ref_api.PartitionRequest(graph=g, k=16, epsilon=0.03))
+        ref_api.PartitionRequest(graph=g, k=16, epsilon=0.03,
+                                 kernel="composed", refine=refine))
     h = carry.graph_from_arrays(g.indptr, g.adjncy, g.eweights, g.vweights)
     res = api.Partitioner(backend="single", device=cuda_device).run(
-        api.PartitionRequest(graph=h, k=16, epsilon=0.03, kernel="fused"))
+        api.PartitionRequest(graph=h, k=16, epsilon=0.03, kernel="fused",
+                             refine=refine))
     np.testing.assert_array_equal(res.assignment, ref.assignment)
     assert _strip(res.trace) == _strip(ref.trace)
-    assert res.metrics["cut"] == ref.metrics["cut"] == 15465
+    assert res.metrics["cut"] == ref.metrics["cut"]
+    if refine == "lp":
+        assert res.metrics["cut"] == 15465
+    else:
+        assert sum(r["phase"] == "refine-mode" for r in res.trace) == 7
     assert res.feasible
     assert sum(r["phase"] == "coarsen" for r in res.trace) == 5

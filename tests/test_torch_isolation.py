@@ -1,7 +1,8 @@
 """repro_torch stands alone: importing it loads no JAX and nothing of the
-JAX package, its entry points refuse to run without a CUDA device unless
-``device="cpu"`` is passed, and ``chip_smoke.py`` fails (printing no
-result) where there is no GPU or no port beside it.
+JAX package, its entry points (the partition CLI among them) refuse to
+run without a CUDA device unless ``device="cpu"`` is passed, and
+``chip_smoke.py`` fails (printing no result) where there is no GPU or no
+port beside it.
 
 Each check runs in a fresh interpreter with CUDA hidden, so the test
 process's own imports of JAX cannot mask a leak.
@@ -110,6 +111,27 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
     assert out.stdout.strip().endswith("ok")
+
+
+def test_modules_walked_include_the_unconstrained_tier_and_facade():
+    mods = _modules()
+    for m in ("repro_torch.core.unconstrained", "repro_torch.core.baselines",
+              "repro_torch.api.session", "repro_torch.launch.partition"):
+        assert m in mods
+
+
+def test_partition_cli_without_cuda_exits_nonzero_unless_cpu_is_asked_for():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.partition",
+           "--family", "rgg2d", "--n", "300", "--k", "2"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and out.stdout == ""
+    out = subprocess.run(cmd + ["--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.splitlines()[0])["feasible"]
 
 
 def _assert_no_result(out):
