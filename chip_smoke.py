@@ -108,7 +108,30 @@ exits non-zero if any one fails:
      ``plain_mgp`` and ``single_level_lp`` must give the reference's cuts,
      feasible; ``python -m repro_torch.launch.partition --family rgg2d
      --n 4000 --k 16 --compare --trace`` must exit 0 with three summary
-     lines of the reference CLI's cuts.
+     lines of the reference CLI's cuts;
+  8. serving. (a) The stacked level-0 clustering of three requests on
+     phase 4's graph (request seeds 0-2, k=16, preset fast) with
+     ``kernel="fused"`` must equal the composed stacked form on the card
+     and three solo ``cluster(kernel="fused")`` calls, in 24 stacked
+     ``lp_move`` calls and no solo one; one stacked call at the level-0
+     chunk shape (S=3, R=262,144, D=32) is held to its plain version
+     (exact), to the three solo calls of the same chunks, timed (wrapper
+     and device time) beside those three calls, its device launches
+     counted (a captured graph: as many as a solo call's) and its bound
+     printed: the three requests' valid lanes over 3.35 TB/s. (b) A
+     burst through ``PartitionServer(meshes=2, batch_max=8,
+     batch_window_ms=50)``: rgg2d n=65,536, k=16, fast, request seeds
+     0-5 twice (priorities 0/1) and seed 0 with ``quality="best"`` and a
+     600 s deadline, which admission downgrades to fast: every result ok
+     and equal to a solo run, the stacked kernel launched; its stats and
+     launch counts printed. (c) ``PartitionSession(stack="auto")
+     .submit_many`` of seed 0 fast, seed 1 fast, seed 0 best and seed 0
+     fast again on phase 4's graph: cuts 15465 and 15308 for seed 0, the
+     assignments of phases 4 and 7, seed 1 its solo run's, the duplicate
+     coalesced, the three distinct level 0s stacked (launch counts
+     checked), the batch's wall beside the solo walls. (d) ``python -m
+     repro_torch.launch.serve --meshes 2 --requests 12 --n 4000 --k 8
+     --verify`` must exit 0.
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -174,6 +197,10 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM, non-tensor 32-bit rate
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "lp_move": ("src/repro_torch/csrc/lp_move.cu",
                 "src/repro/kernels/lp_move/lp_move.py:197"),
+    # the same TPU kernel, with the request axis the reference adds by
+    # jax.vmap (core/lp.py:258 cluster_iteration_stacked)
+    "lp_move_stacked": ("src/repro_torch/csrc/lp_move.cu",
+                        "src/repro/kernels/lp_move/lp_move.py:197"),
     "seg_merge": ("src/repro_torch/csrc/seg_merge.cu",
                   "src/repro/kernels/seg_merge/seg_merge.py:117"),
     "bal_scores": ("src/repro_torch/csrc/bal_round.cu",
@@ -1042,6 +1069,27 @@ def bound(kind: str, args, kw, out):
     one shared-memory load-to-use latency (CARD, measured in phase 1 by a
     pointer chase) at the card's maximum SM clock. Its "operations" time
     is M x that latency."""
+    moved, ops = bound_parts(kind, args, kw, out)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    if kind == "greedy_pick":
+        t_ops = args[0].numel() * CARD["smem_load_cycles"] / (
+            CARD["sm_clock_mhz"] * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_parts(kind: str, args, kw, out):
+    """(bytes moved, operations) of one call, as ``bound`` counts them. A
+    stacked lp_move call counts each request's solo call: its valid
+    lanes, columns, outputs and operations, summed."""
+    if kind == "lp_move_stacked":
+        S = args[0].shape[0]
+        pick = (lambda x, s: x[s] if hasattr(x, "shape") else x)
+        parts = [bound_parts("lp_move", [pick(a, s) for a in args],
+                             {k: pick(v, s) for k, v in kw.items()
+                              if v is not None},
+                             tuple(o[s] for o in out)) for s in range(S)]
+        return sum(m for m, _ in parts), sum(o for _, o in parts)
     tensors = [a for a in args if hasattr(a, "numel")]
     tensors += [v for v in kw.values() if hasattr(v, "numel")]
     outs = out if isinstance(out, tuple) else (out,)
@@ -1074,12 +1122,7 @@ def bound(kind: str, args, kw, out):
     else:                                          # greedy_pick
         moved = nbytes(*tensors) + nbytes(*outs)
         ops = 0.0
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    if kind == "greedy_pick":
-        t_ops = args[0].numel() * CARD["smem_load_cycles"] / (
-            CARD["sm_clock_mhz"] * 1e6) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return moved, ops
 
 
 def graph_launches(torch, call):
@@ -1909,7 +1952,354 @@ def phase_unconstrained(torch, api, build, g, lp_run, lp_wall, lp_launches):
           f"CLI: summaries {summaries}; the reference CLI gives "
           f"{CLI_CUTS}, feasible")
     return {"main": lp_launches, "unconstrained": launches,
-            "compare": cmp_launches}
+            "compare": cmp_launches}, res, wall
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving (the stacked level-0 clustering, a served burst, a
+# served batch at the main path's size, the serve CLI)
+# ---------------------------------------------------------------------------
+
+SERVE_SEEDS = (0, 1, 2)       # 8a: request seeds of the stacked level 0
+BURST_N = 1 << 16             # 8b: rgg2d n of the served burst
+
+
+def stacked_level0(torch, api, build, g):
+    """8a: the stacked level-0 clustering of three requests on the main
+    path's graph (request seeds 0-2): fused against the composed stacked
+    form on the card and three solo ``cluster(kernel="fused")`` calls,
+    then one stacked ``lp_move`` call at the level-0 chunk shape against
+    its plain version, timed beside the three solo calls of the same
+    chunks. Returns the kernel's record row."""
+    from repro_torch.core import coarsening
+    from repro_torch.core.deep_mgp import level0_cluster_plan
+    from repro_torch.kernels.lp_move import lp_move as lp_mod
+    from repro_torch.kernels.lp_move import ops as lp_ops
+    from repro_torch.kernels.lp_move import ref as lp_ref
+    from repro_torch.serve import batching
+
+    reqs = [api.PartitionRequest(graph=g, k=16, epsilon=0.03, preset="fast",
+                                 seed=s) for s in SERVE_SEEDS]
+    plans = [level0_cluster_plan(g, 16, r.resolve_config()) for r in reqs]
+    capture = Capture(torch)
+    capture.wrap(lp_ops, "lp_move_chunk_stacked", "lp_move_stacked")
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        fused = batching.stacked_level0_labels([g] * len(reqs), plans,
+                                               kernel="fused")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        capture.restore()
+    calls = plans[0]["num_iterations"] * plans[0]["num_chunks"]
+    say(f"  8a stacked level 0, S={len(reqs)} (request seeds "
+        f"{list(SERVE_SEEDS)}, W {[p['W'] for p in plans]}): {wall:.3f} s, "
+        f"lp_move_stacked {launches['lp_move_stacked']} calls, lp_move "
+        f"{launches['lp_move']}")
+    check(launches["lp_move_stacked"] == calls and launches["lp_move"] == 0,
+          f"8a: {launches['lp_move_stacked']} stacked and "
+          f"{launches['lp_move']} solo lp_move calls; expected {calls} and 0")
+    t0 = time.perf_counter()
+    composed = batching.stacked_level0_labels([g] * len(reqs), plans,
+                                              kernel="composed")
+    composed_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = [coarsening.cluster(g, p["W"], num_iterations=p["num_iterations"],
+                               num_chunks=p["num_chunks"], seed=p["seed"],
+                               kernel="fused") for p in plans]
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    for s, (a, b, c) in enumerate(zip(fused, composed, solo)):
+        check(np.array_equal(a, b) and np.array_equal(a, c),
+              f"8a: request {s}'s stacked labels differ from the composed "
+              "stacked form or its solo cluster call")
+    say(f"  8a labels bit-identical to the composed stacked form "
+        f"({composed_wall:.3f} s) and to 3 solo cluster(kernel='fused') "
+        f"calls ({solo_wall:.3f} s)")
+    _, fn, args, kw = capture.inputs["lp_move_stacked"]
+    del capture
+    S, R, D = args[0].shape
+    check((S, R, D) == (3, 262144, 32),
+          f"8a: the stacked call's shape {(S, R, D)}; expected the level-0 "
+          "chunk's (3, 262144, 32)")
+    # the free-memory guard of _stacked_fused against the peak it guards,
+    # on a run without the capture's copies
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    again = batching.stacked_level0_labels([g] * len(reqs), plans,
+                                           kernel="fused")
+    peak = torch.cuda.max_memory_allocated() - held
+    need = lp_ops.stacked_bytes(S, plans[0]["num_chunks"], R, D, args[-1])
+    check(all(np.array_equal(a, b) for a, b in zip(again, fused)),
+          "8a: a second stacked level 0 differs from the first")
+    check(0 < peak <= need,
+          f"8a: the stacked level 0 peaked at {peak} device bytes; its "
+          f"free-memory guard reckons {need}")
+    say(f"  8a device memory: peak {peak} bytes over the stacked level 0, "
+        f"guard (stacked_bytes) {need} bytes")
+    row = held_and_timed(torch, "lp_move_stacked", fn,
+                         lp_ref.lp_move_chunk_stacked_ref, args, kw, 20,
+                         launches["lp_move_stacked"])
+    call = (lambda: fn(*args, **kw))            # noqa: E731
+    n_stacked = say_launches(torch, "lp_move_stacked", call,
+                             f"at S={S} x {R} rows")
+    nlab, nw, ncw, own, vw, W, v0, salt, num_labels = args
+    Ws, v0s, salts = (x.tolist() for x in (W, v0, salt))
+    solo_calls = [functools.partial(
+        lp_mod.lp_move_chunk, nlab[s], nw[s], ncw[s], own[s], vw[s], Ws[s],
+        v0s[s], salts[s] & 0xFFFFFFFF, num_labels) for s in range(S)]
+    n_solo = say_launches(torch, "lp_move", solo_calls[0],
+                          f"at {R} rows (one request's chunk)")
+    check(n_stacked == n_solo <= 12,
+          f"8a: {n_stacked} device launches a stacked call, {n_solo} a solo "
+          "one; expected the same number, at most 12")
+    dev_ms = device_ms(torch, [call], 20)
+    solo_ms = cuda_ms(torch, lambda: [c() for c in solo_calls], 20)
+    solo_dev = device_ms(torch, solo_calls, 20) * S
+    no_stream_wait(torch, "lp_move_stacked", call)
+    for s, c in enumerate(solo_calls):
+        got = c()
+        check(all(torch.equal(a, b[s]) for a, b in zip(got, fn(*args,
+                                                                **kw))),
+              f"8a: request {s}'s solo lp_move call differs from its row "
+              "of the stacked call")
+    say(f"  lp_move_stacked: device time per call {dev_ms:.4f} ms (CUDA "
+        f"events behind a sleep kernel); the {S} solo calls of the same "
+        f"chunks {solo_ms:.4f} ms back to back (wrapper), {solo_dev:.4f} ms "
+        f"of device time; stacked {row['ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.7f} ms ({row['bound_by']})")
+    row.update(device_launches=n_stacked, device_ms=dev_ms,
+               solo_calls_ms=solo_ms, solo_calls_device_ms=solo_dev,
+               stack=S)
+    return row
+
+
+class HintTimes:
+    """Wall seconds of every stacked level-0 computation of a batch
+    (``serve.batching._level0_hints``, the module attribute wrapped while
+    entered): (distinct requests, stacked ones, seconds)."""
+
+    def __init__(self):
+        from repro_torch.serve import batching
+        self.batching = batching
+        self.calls = []
+
+    def __enter__(self):
+        hints = self._hints = self.batching._level0_hints
+
+        def timed(session, requests, stack):
+            t0 = time.perf_counter()
+            out = hints(session, requests, stack)
+            self.calls.append((len(requests),
+                               sum(h is not None for h in out),
+                               round(time.perf_counter() - t0, 4)))
+            return out
+
+        self.batching._level0_hints = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.batching._level0_hints = self._hints
+
+
+def phase_seconds(results):
+    """Sum of the trace's time_s per phase over ``results``."""
+    out = {}
+    for r in results:
+        for rec in r.trace:
+            if "time_s" in rec:
+                out[rec["phase"]] = out.get(rec["phase"], 0.0) + \
+                    rec["time_s"]
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def burst(torch, build, srv_cls, reqs, best, meshes):
+    """The burst through ``srv_cls(meshes=meshes)``: (results, stats,
+    wall, process CPU seconds, launches, stacked level-0 times)."""
+    build.reset_launches()
+    t0, c0 = time.perf_counter(), time.process_time()
+    with HintTimes() as hints, srv_cls(meshes=meshes, batch_max=8,
+                                       batch_window_ms=50.0) as srv:
+        futs = [srv.submit(r, priority=i % 2) for i, r in enumerate(reqs)]
+        futs.append(srv.submit(best, deadline_s=600))
+        results = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        stats = srv.stats()
+    return (results, stats, time.perf_counter() - t0,
+            time.process_time() - c0, dict(build.LAUNCHES), hints.calls)
+
+
+def served_burst(torch, api, build):
+    """8b: a burst of 13 requests through a one-worker and then a
+    two-worker PartitionServer on the card, each result against a solo
+    run; one ``quality="best"`` request with a deadline is downgraded to
+    ``fast`` at admission. No attempt may fail (a failed stacked call
+    would be retried solo), and the launch counts are pinned: level 0 of
+    every stacked request runs in the stacked kernel, the rest of each
+    distinct run in solo ``lp_move`` calls. Returns the two-worker
+    burst's launch counts."""
+    from repro_torch.core.deep_mgp import level0_cluster_plan
+    from repro_torch.serve import PartitionServer
+
+    spec = api.GraphSpec("rgg2d", BURST_N, 8.0, seed=17)
+    base = {s: api.PartitionRequest(graph=spec, k=16, preset="fast", seed=s)
+            for s in range(6)}
+    reqs = [base[s] for s in range(6)] * 2
+    best = dataclasses.replace(base[0], quality="best")
+    solo, solo_lp, solo_wall = {}, {}, 0.0
+    for s, r in base.items():
+        build.reset_launches()
+        t0 = time.perf_counter()
+        solo[s] = api.Partitioner().run(r)
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        solo_lp[s] = build.LAUNCHES["lp_move"]
+    plan = level0_cluster_plan(spec.materialize(), 16,
+                               base[0].resolve_config())
+    level0 = plan["num_iterations"] * plan["num_chunks"]
+    keys = ("completed", "batches", "coalesced", "batch_size_max",
+            "latency_p50_s", "latency_p99_s", "queue_wait_p99_s",
+            "downgraded", "retried", "per_worker_served")
+    for meshes in (1, 2):
+        results, stats, wall, cpu, launches, hints = burst(
+            torch, build, PartitionServer, reqs, best, meshes)
+        tag = f"8b ({meshes} worker{'s' * (meshes > 1)})"
+        for r, req in zip(results, reqs + [base[0]]):
+            check(r.ok, f"{tag}: a served result is not ok: {r.error} "
+                  f"{r.detail}")
+            check(r.attempts == 1, f"{tag}: a request took {r.attempts} "
+                  "attempts")
+            check(np.array_equal(r.result.assignment,
+                                 solo[req.seed].assignment),
+                  f"{tag}: the served result of seed {req.seed} differs "
+                  "from its solo run")
+        check(results[-1].result.request.quality == "fast"
+              and stats["downgraded"] == 1,
+              f"{tag}: the deadline-bearing quality='best' request was not "
+              "downgraded to fast")
+        check(stats["retried"] == 0, f"{tag}: {stats['retried']} retries")
+        served = list({id(r.result): r.result for r in results}.values())
+        stacked = [c for c in hints if c[1]]
+        want_stacked = level0 * len(stacked)
+        want_lp = sum(solo_lp[r.request.seed] for r in served) \
+            - level0 * sum(c[1] for c in stacked)
+        check(stacked and launches["lp_move_stacked"] == want_stacked
+              and launches["lp_move"] == want_lp,
+              f"{tag}: lp_move_stacked {launches['lp_move_stacked']}, "
+              f"lp_move {launches['lp_move']}; expected {want_stacked} and "
+              f"{want_lp} (stacked level 0s {hints})")
+        say(f"  {tag} served burst: rgg2d n={BURST_N}, k=16, fast, seeds "
+            f"0-5 twice + seed 0 'best' (deadline 600 s): all ok in one "
+            f"attempt, bit-identical to solo runs; wall {wall:.3f} s, "
+            f"process CPU {cpu:.3f} s, throughput "
+            f"{len(results) / wall:.3f} requests/s; stats "
+            f"{json.dumps({k: stats[k] for k in keys})}")
+        say(f"  {tag} launches {json.dumps(launches, sort_keys=True)}; "
+            f"stacked level 0s (distinct, stacked, s) {hints}; trace "
+            f"seconds by phase, the {len(served)} distinct served runs "
+            f"{json.dumps(phase_seconds(served))}")
+    say(f"  8b the 6 distinct solo runs: {solo_wall:.3f} s, lp_move "
+        f"{json.dumps(solo_lp)}, trace seconds by phase "
+        f"{json.dumps(phase_seconds(solo.values()))}")
+    return launches
+
+
+def served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
+                     un_wall, solo_launches):
+    """8c: ``submit_many`` of four requests on the main path's graph
+    through a ``stack="auto"`` session on the card: seed 0 fast and best
+    must give phase 4's and phase 7's assignments (the reference's cuts),
+    seed 1 its solo run's, and the duplicate shares seed 0's run. Returns
+    the batch's launch counts. ``solo_launches``: phases 4's and 7's."""
+    from repro_torch.core.deep_mgp import level0_cluster_plan
+
+    def req(seed, quality):
+        return api.PartitionRequest(graph=g, k=16, epsilon=0.03,
+                                    preset="fast", seed=seed,
+                                    quality=quality)
+
+    reqs = [req(0, "fast"), req(1, "fast"), req(0, "best"), req(0, "fast")]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    solo1 = api.Partitioner().run(reqs[1])
+    torch.cuda.synchronize()
+    solo1_wall = time.perf_counter() - t0
+    solo1_launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with HintTimes() as hints, api.PartitionSession(stack="auto") as sess:
+        out = sess.submit_many(reqs).result()
+        torch.cuda.synchronize()
+        served = sess.stats()["served"]
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for r, want, what in ((out[0], lp_run, "phase 4's"),
+                          (out[2], un_run, "phase 7's"),
+                          (out[1], solo1, "its solo run's")):
+        check(np.array_equal(r.assignment, want.assignment),
+              f"8c: seed {r.request.seed} {r.request.quality} differs from "
+              f"{what} assignment")
+    check(out[0].cut == FULL_CUT and out[2].cut == UNCONSTRAINED_CUT
+          and all(r.feasible for r in out),
+          f"8c: cuts {[r.cut for r in out]}; expected {FULL_CUT} (fast) "
+          f"and {UNCONSTRAINED_CUT} (best), feasible")
+    check(out[3] is out[0] and served == 3,
+          f"8c: the duplicate did not share seed 0's run ({served} runs)")
+    plan = level0_cluster_plan(g, 16, reqs[0].resolve_config())
+    level0 = plan["num_iterations"] * plan["num_chunks"]
+    want_solo = sum(c["lp_move"] for c in (*solo_launches, solo1_launches)) \
+        - 3 * level0
+    check(launches["lp_move_stacked"] == level0
+          and launches["lp_move"] == want_solo,
+          f"8c: lp_move_stacked {launches['lp_move_stacked']}, lp_move "
+          f"{launches['lp_move']}; expected {level0} and {want_solo}: the "
+          "three distinct requests' level 0 stacked, the rest solo")
+    say(f"  8c submit_many (seed 0 fast, seed 1 fast, seed 0 best, seed 0 "
+        f"fast again) at rgg2d {FULL_N}: cuts {[r.cut for r in out]}, "
+        f"{served} runs; batch wall {wall:.3f} s against the solo walls "
+        f"{lp_wall:.3f} + {solo1_wall:.3f} + {un_wall:.3f} = "
+        f"{lp_wall + solo1_wall + un_wall:.3f} s (phases 4, 8c, 7)")
+    say(f"  8c launches, batch {json.dumps(launches, sort_keys=True)}; solo "
+        f"seed 1 {json.dumps(solo1_launches, sort_keys=True)}")
+    say(f"  8c stacked level 0 (distinct, stacked, s) {hints.calls}; trace "
+        f"seconds by phase, the batch's 3 runs "
+        f"{json.dumps(phase_seconds(out[:3]))}, the solo runs "
+        f"{json.dumps(phase_seconds([lp_run, solo1, un_run]))}")
+    return launches
+
+
+def phase_serving(torch, api, build, g, lp_run, lp_wall, un_run, un_wall,
+                  by_path):
+    say("== phase 8: serving: stacked level 0, a served burst, a served "
+        "batch at the main path's size, the serve CLI")
+    row = stacked_level0(torch, api, build, g)
+    burst = served_burst(torch, api, build)
+    main = served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
+                            un_wall, (by_path["main"],
+                                      by_path["unconstrained"]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--meshes", "2",
+           "--requests", "12", "--n", "4000", "--k", "8", "--verify"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                 PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0,
+          f"serve CLI exit {out.returncode}: {out.stderr[-2000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines()]
+    check({"verify": "bit-identical"} in lines
+          and sum(1 for x in lines if x.get("ok")) == 12,
+          f"serve CLI: {out.stdout[-2000:]}")
+    stats = lines[-1]["stats"]
+    say(f"  8d CLI {' '.join(cmd[1:])}: exit 0, 12 ok, verify "
+        f"bit-identical, {time.perf_counter() - t0:.2f} s; batches "
+        f"{stats['batches']}, coalesced {stats['coalesced']}, wall "
+        f"{stats['wall_s']} s")
+    row["launches"] = main["lp_move_stacked"]
+    return row, {"serve_burst": burst, "serve_main": main}
+
 
 
 def main() -> int:
@@ -1965,10 +2355,15 @@ def main() -> int:
     kernels = phase_kernels(torch, build, capture, launches, g, assignment,
                             dev)
     kernels += phase_off_main(torch, build, g, assignment, dev)
-    by_path = phase_unconstrained(torch, api, build, g, lp_run, lp_wall,
-                                  launches)
+    by_path, un_run, un_wall = phase_unconstrained(
+        torch, api, build, g, lp_run, lp_wall, launches)
+    stacked_row, serve_paths = phase_serving(torch, api, build, g, lp_run,
+                                             lp_wall, un_run, un_wall,
+                                             by_path)
+    by_path.update(serve_paths)
+    kernels.insert(1, stacked_row)
     for row in kernels:
-        if row["name"] in MAIN_PATH:
+        if row["name"] in MAIN_PATH + ("lp_move_stacked",):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}
     check("jax" not in sys.modules and "repro" not in sys.modules,

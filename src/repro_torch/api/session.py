@@ -6,10 +6,12 @@ requests concurrently on a thread pool. Results are bit-identical to
 running each request alone through ``Partitioner`` — every request is a
 pure function of its fields.
 
-This port serves one device: the reference's multi-device sessions (a
-shared mesh, ``shard_ctx``) wait for the distributed engine (ROADMAP.md,
-queue 1 item 5) and its coalesced ``submit_many`` for the serving tier
-(queue 1 item 4); both raise ``NotImplementedError``.
+``submit_many`` serves a same-bucket batch as one unit of work
+(``serve/batching.py::run_coalesced``): identical requests share one
+run, and with ``stack`` on distinct requests share one stacked level-0
+clustering. This port serves one device: the reference's multi-device
+sessions (a shared mesh, ``shard_ctx``) wait for the distributed engine
+(ROADMAP.md, queue 1 item 5) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, Sequence
 
+from .backends import BackendContext
 from .partitioner import Partitioner
 from .request import GraphSpec, PartitionRequest
 from .result import PartitionResult
@@ -102,8 +105,10 @@ class PartitionSession:
     graph_cache_size:
         LRU bound of the session-owned cache.
     stack:
-        ``"auto"`` | ``"on"`` | ``"off"``, validated as in the reference;
-        it selects how ``submit_many`` batches run, which is not ported.
+        Stacked level-0 clustering for ``submit_many`` batches:
+        ``"auto"`` (on for a CUDA device, where chunk b of every request
+        is one ``lp_move`` kernel call; off on the CPU), ``"on"`` or
+        ``"off"``. See ``serve/batching.py``.
     device:
         The torch device every request runs on: the card by default
         (raising without one), ``"cpu"`` on purpose.
@@ -152,6 +157,11 @@ class PartitionSession:
         """The reference's sharding context over the session mesh."""
         raise NotImplementedError(f"PartitionSession.shard_ctx: {_NO_DIST}")
 
+    @property
+    def device(self):
+        """The torch device every request of this session runs on."""
+        return self._engine.device
+
     def _resolve_graph(self, req: PartitionRequest) -> PartitionRequest:
         """Materialize (and cache) GraphSpec graphs once per cache — the
         lock spans the materialize so concurrent misses on one spec never
@@ -167,12 +177,25 @@ class PartitionSession:
 
     # -- serving -----------------------------------------------------------
 
-    def _run_one(self, req: PartitionRequest) -> PartitionResult:
-        res = self._engine.run(self._resolve_graph(req))
+    def _run_one(self, req: PartitionRequest,
+                 level0_labels=None) -> PartitionResult:
+        """One request as a solo run; ``level0_labels``, when given,
+        replaces its level-0 clustering (the serving tier's stacked
+        labels, bit-identical to what that call returns)."""
+        req = self._resolve_graph(req)
+        res = self._engine.run(req, _ctx=BackendContext(
+            device=self.device, devices=req.devices,
+            level0_labels=level0_labels))
         with self._lock:
             self._served += 1
             self._total_time_s += res.time_s
         return res
+
+    def _run_many(self, requests: List[PartitionRequest]
+                  ) -> List[PartitionResult]:
+        # lazy import: serve/ layers on api/, not the reverse
+        from ..serve.batching import run_coalesced
+        return run_coalesced(self, requests, stack=self.stack)
 
     def submit(self, req: PartitionRequest) -> "Future[PartitionResult]":
         """Enqueue one request; returns a future. The closed-check and the
@@ -186,12 +209,16 @@ class PartitionSession:
 
     def submit_many(self, requests: Sequence[PartitionRequest]
                     ) -> "Future[List[PartitionResult]]":
-        """The reference's coalesced, stacked batch dispatch
-        (``serve/batching.py::run_coalesced``); not ported."""
-        raise NotImplementedError(
-            "PartitionSession.submit_many: coalesced batches run in the "
-            "serving tier, which is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 4); use submit or run_batch")
+        """Enqueue a same-shape-bucket batch as ONE unit of work: the
+        returned future resolves to results in request order. Identical
+        requests are coalesced into a single partition run (requests are
+        pure functions of their fields), and — with ``stack`` on —
+        distinct requests share one stacked level-0 clustering. Results
+        are bit-identical to per-request ``submit``."""
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("session is closed")
+            return self._pool.submit(self._run_many, list(requests))
 
     def run_batch(self, requests: Iterable[PartitionRequest]
                   ) -> List[PartitionResult]:

@@ -269,6 +269,26 @@ def cluster_iteration(labels, cluster_w, chunks_src, chunks_dst, chunks_w,
     return labels, cluster_w
 
 
+def cluster_iteration_stacked(labels, cluster_w, chunks_src, chunks_dst,
+                              chunks_w, vweights, max_cluster_weight, seed,
+                              *, n):
+    """``cluster_iteration`` with a leading request axis (S, ...): row
+    ``s`` is bit-identical to ``cluster_iteration`` of that row at the
+    same padded shape. ``max_cluster_weight`` and ``seed`` are host
+    sequences of S ints.
+
+    The composed form applies the solo body row by row: torch ops on the
+    CPU gain nothing from stacking (their sorts are compute-bound), and
+    the card stacks through the ``lp_move`` kernel's request axis
+    (``kernels/lp_move/ops.py::cluster_iteration_fused_stacked``)."""
+    rows = [cluster_iteration(labels[s], cluster_w[s], chunks_src[s],
+                              chunks_dst[s], chunks_w[s], vweights[s],
+                              int(max_cluster_weight[s]), int(seed[s]), n=n)
+            for s in range(labels.shape[0])]
+    return (torch.stack([la for la, _ in rows]),
+            torch.stack([cw for _, cw in rows]))
+
+
 # ---------------------------------------------------------------------------
 # k-way refinement chunk step
 # ---------------------------------------------------------------------------

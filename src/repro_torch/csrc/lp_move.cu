@@ -50,6 +50,17 @@
 // such chunks turn up. Every kernel reads the count from the
 // device, so a call is 4 launches (one of them the memset that clears the
 // tables), whatever R, num_labels and the candidate count.
+//
+// The request axis (lp_move_chunk_stacked). The serving tier runs the
+// level-0 clustering of S requests together: chunk b of every request in
+// one call, each request with its own slabs, labels, W, v0 and salt. Every
+// kernel takes the request from blockIdx.y and offsets its pointers by it:
+// phase A and the candidates run on a (tiles, S) grid, each request with
+// its own weight tables, candidate list, tile tickets, look-back and digit
+// histograms; the sort and revert is one CTA a request (grid S). W, v0 and
+// salt come from (S,) device arrays, so a stacked call is the same 4
+// launches (one memset clears every request's tables) whatever S is. The
+// solo call is the S = 1 case with its three scalars.
 #include "common.cuh"
 
 namespace {
@@ -60,6 +71,19 @@ constexpr int ROWS = 4;         // phase A: rows per warp
 // int counters at the head of the zeroed scratch: the candidate count and
 // the candidates kernel's tile ticket
 enum { C_COUNT = 0, C_TICKET = 1, N_COUNTERS = 2 };
+
+// W, v0 and salt of request s: from (S,) device arrays in a stacked call,
+// the scalars in a solo one.
+struct ReqArgs {
+  const int* W;
+  const int* v0;
+  const uint32_t* salt;
+  int W1, v01;
+  uint32_t salt1;
+  __device__ int w(int s) const { return W ? W[s] : W1; }
+  __device__ int first(int s) const { return v0 ? v0[s] : v01; }
+  __device__ uint32_t seed(int s) const { return salt ? salt[s] : salt1; }
+};
 
 // Lexicographic "better" of the argmax tie chain: higher score, then
 // lighter cluster, then smaller hash, then smaller label.
@@ -163,11 +187,19 @@ __global__ void __launch_bounds__(WARPS * 32)
 lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
              const int* __restrict__ ncw, const int* __restrict__ nbud,
              const int* __restrict__ own, const int* __restrict__ vw, int R,
-             int D, int W, uint32_t salt, int num_labels,
-             int* __restrict__ tgt, int* __restrict__ pmove,
-             int* __restrict__ light, int* __restrict__ din,
-             int* __restrict__ dout) {
+             int D, ReqArgs q, int num_labels, int* __restrict__ tgt,
+             int* __restrict__ pmove, int* __restrict__ light,
+             int* __restrict__ din, int* __restrict__ dout) {
   const int lane = threadIdx.x & 31;
+  const int s = blockIdx.y;  // the request
+  const size_t rows = (size_t)s * R, slab = rows * D;
+  nlab += slab; nw += slab; ncw += slab;
+  if (nbud) nbud += slab;
+  own += rows; vw += rows; tgt += rows; pmove += rows; light += rows;
+  din += (size_t)s * num_labels;
+  dout += (size_t)s * num_labels;
+  const int W = q.w(s);
+  const uint32_t salt = q.seed(s);
   const int r0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * ROWS;
   if (r0 >= R) return;  // whole warp leaves together
   int l[ROWS], w[ROWS], c[ROWS], b[ROWS], o[ROWS], v[ROWS];
@@ -201,12 +233,22 @@ lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
 __global__ void __launch_bounds__(TILE)
 lp_move_candidates(const int* tgt, const int* pmove, const int* light,
                    const int* vw, const int* din, const int* dout, int R,
-                   int W, int v0, uint32_t salt2, int passes, int* newcw,
+                   ReqArgs q, int num_labels, int passes, int* newcw,
                    int* movedin, int* moved, uint64_t* ckey, int* crow,
                    int* ctr, int* hist, uint64_t* cstat) {
   __shared__ int s_tile, s_excl;
   __shared__ int sf[32], sv[32];
   __shared__ int s_hist[MAX_PASSES * RADIX];
+  const int s = blockIdx.y;  // the request
+  const size_t rows = (size_t)s * R, labels = (size_t)s * num_labels;
+  tgt += rows; pmove += rows; light += rows; vw += rows; newcw += rows;
+  moved += rows; ckey += rows; crow += rows;
+  din += labels; dout += labels; movedin += labels;
+  ctr += s * N_COUNTERS;
+  hist += s * MAX_PASSES * RADIX;
+  cstat += (size_t)s * gridDim.x;
+  const int W = q.w(s), v0 = q.first(s);
+  const uint32_t salt2 = q.seed(s) ^ 0x9E3779B9u;
   if (threadIdx.x == 0) s_tile = atomicAdd(&ctr[C_TICKET], 1);
   for (int i = threadIdx.x; i < passes * RADIX; i += TILE) s_hist[i] = 0;
   __syncthreads();
@@ -248,20 +290,28 @@ lp_move_candidates(const int* tgt, const int* pmove, const int* light,
 }
 
 // The sort of the candidates, the cumulative moved-in weight of each
-// within its target in sorted order, and the revert: one CTA, which walks
-// the list in TILE-key tiles. A pass ranks each tile in shared memory and
-// places it after the keys of smaller digits (hist) and the equal digits
-// of earlier tiles (base[d] grows tile by tile): (k0, r0) -> (k1, r1) and
-// back. The scan carries (head seen, sum) from tile to tile.
+// within its target in sorted order, and the revert: one CTA a request,
+// which walks its list in TILE-key tiles. A pass ranks each tile in
+// shared memory and places it after the keys of smaller digits (hist) and
+// the equal digits of earlier tiles (base[d] grows tile by tile): (k0, r0)
+// -> (k1, r1) and back. The scan carries (head seen, sum) from tile to
+// tile.
 __global__ void __launch_bounds__(TILE)
 lp_move_sort_revert(uint64_t* k0, int* r0, uint64_t* k1, int* r1,
                     int passes, const int* hist, const int* vw,
-                    const int* newcw, const int* movedin, int W,
-                    const int* ctr, int* moved) {
+                    const int* newcw, const int* movedin, int R,
+                    int num_labels, ReqArgs q, const int* ctr, int* moved) {
   __shared__ unsigned short wh[32 * RADIX];
   __shared__ int cnt[RADIX], base[RADIX];
   __shared__ int s_w[RADIX / 32], sf[32], sv[32];
-  const int count = ctr[C_COUNT];
+  const int s = blockIdx.x;  // the request: one CTA each
+  const size_t rows = (size_t)s * R;
+  k0 += rows; r0 += rows; k1 += rows; r1 += rows;
+  vw += rows; newcw += rows; moved += rows;
+  movedin += (size_t)s * num_labels;
+  hist += s * MAX_PASSES * RADIX;
+  const int W = q.w(s);
+  const int count = ctr[s * N_COUNTERS + C_COUNT];
   if (count == 0) return;  // the usual case: no pass need wait on hist
   for (int pass = 0; pass < passes; ++pass) {
     const uint64_t* kin = pass & 1 ? k1 : k0;
@@ -309,8 +359,9 @@ lp_move_sort_revert(uint64_t* k0, int* r0, uint64_t* k1, int* r1,
   }
 }
 
-// Scratch layout, 256-byte aligned pieces. Everything from din on is
-// cleared by one memset per call.
+// Scratch layout, 256-byte aligned pieces, each holding S requests' parts
+// one after the other. Everything from din on is cleared by one memset per
+// call.
 struct Scratch {
   int *pmove, *light, *newcw;
   uint64_t* key[2];
@@ -321,15 +372,15 @@ struct Scratch {
   size_t zero_bytes;
 };
 
-size_t carve(char* base, int R, int num_labels, Scratch* s) {
+size_t carve(char* base, int S, int R, int num_labels, Scratch* s) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
     off += (bytes + 255) & ~(size_t)255;
     return p;
   };
-  const size_t r = (size_t)R, nl = (size_t)num_labels;
-  const size_t tiles = (r + TILE - 1) / TILE;
+  const size_t r = (size_t)S * R, nl = (size_t)S * num_labels;
+  const size_t tiles = (size_t)S * (((size_t)R + TILE - 1) / TILE);
   s->pmove = (int*)take(4 * r);
   s->light = (int*)take(4 * r);
   s->newcw = (int*)take(4 * r);
@@ -341,8 +392,8 @@ size_t carve(char* base, int R, int num_labels, Scratch* s) {
   s->din = (int*)take(4 * nl);
   s->dout = (int*)take(4 * nl);
   s->movedin = (int*)take(4 * nl);
-  s->ctr = (int*)take(4 * N_COUNTERS);
-  s->hist = (int*)take(4 * MAX_PASSES * RADIX);
+  s->ctr = (int*)take(4 * (size_t)S * N_COUNTERS);
+  s->hist = (int*)take(4 * (size_t)S * MAX_PASSES * RADIX);
   s->cstat = (uint64_t*)take(8 * tiles);
   s->zero = base ? base + zero_from : nullptr;
   s->zero_bytes = off - zero_from;
@@ -356,46 +407,81 @@ int key_passes(int num_labels) {
   return (bits + 7) / 8;
 }
 
+bool bad_shape(int S, int R, int D, int num_labels) {
+  return S < 1 || S > 65535 || R < 1 || D < 1 || num_labels < 1 ||
+         (int64_t)S * R >= ((int64_t)1 << 31) ||
+         (int64_t)S * num_labels >= ((int64_t)1 << 31);
+}
+
+int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
+           const int* own, const int* vw, int S, int R, int D,
+           ReqArgs q, int num_labels, int* moved, int* tgt, void* scratch,
+           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Scratch s;
+  carve((char*)scratch, S, R, num_labels, &s);
+  const int passes = key_passes(num_labels);
+  const int tiles = (R + TILE - 1) / TILE;
+  cudaError_t err = cudaMemsetAsync(s.zero, 0, s.zero_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  lp_move_rows<<<dim3((R + WARPS * ROWS - 1) / (WARPS * ROWS), S),
+                 WARPS * 32, 0, st>>>(nlab, nw, ncw, nbud, own, vw, R, D, q,
+                                      num_labels, tgt, s.pmove, s.light,
+                                      s.din, s.dout);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  lp_move_candidates<<<dim3(tiles, S), TILE, 0, st>>>(
+      tgt, s.pmove, s.light, vw, s.din, s.dout, R, q, num_labels, passes,
+      s.newcw, s.movedin, moved, s.key[0], s.row[0], s.ctr, s.hist, s.cstat);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  lp_move_sort_revert<<<S, TILE, 0, st>>>(
+      s.key[0], s.row[0], s.key[1], s.row[1], passes, s.hist, vw, s.newcw,
+      s.movedin, R, num_labels, q, s.ctr, moved);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Bytes of scratch lp_move_chunk needs for R rows and num_labels labels.
-extern "C" int lp_move_scratch_bytes(int R, int num_labels, int64_t* bytes) {
-  if (R < 1 || num_labels < 1) return (int)cudaErrorInvalidValue;
+// Bytes of scratch a call needs for S requests (1: lp_move_chunk) of R rows
+// and num_labels labels.
+extern "C" int lp_move_scratch_bytes(int S, int R, int num_labels,
+                                     int64_t* bytes) {
+  if (bad_shape(S, R, 1, num_labels)) return (int)cudaErrorInvalidValue;
   Scratch s;
-  *bytes = (int64_t)carve(nullptr, R, num_labels, &s);
+  *bytes = (int64_t)carve(nullptr, S, R, num_labels, &s);
   return 0;
 }
 
 // nbud == nullptr selects the host admission form (fit_sum). Labels in
 // own / nlab (and hence targets) must lie in [0, num_labels); a mover's
 // label outside it stops the kernel (__trap). scratch holds
-// lp_move_scratch_bytes(R, num_labels) bytes, 256-byte aligned, in any
+// lp_move_scratch_bytes(1, R, num_labels) bytes, 256-byte aligned, in any
 // state; moved and tgt hold R ints each.
 extern "C" int lp_move_chunk(const int* nlab, const int* nw, const int* ncw,
                              const int* nbud, const int* own, const int* vw,
                              int R, int D, int W, int v0, uint32_t salt,
                              int num_labels, int* moved, int* tgt,
                              void* scratch, void* stream) {
-  if (R < 1 || D < 1 || num_labels < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  Scratch s;
-  carve((char*)scratch, R, num_labels, &s);
-  const int passes = key_passes(num_labels);
-  const int tiles = (R + TILE - 1) / TILE;
-  cudaError_t err = cudaMemsetAsync(s.zero, 0, s.zero_bytes, st);
-  if (err != cudaSuccess) return (int)err;
-  lp_move_rows<<<(R + WARPS * ROWS - 1) / (WARPS * ROWS), WARPS * 32, 0,
-                 st>>>(
-      nlab, nw, ncw, nbud, own, vw, R, D, W, salt, num_labels, tgt, s.pmove,
-      s.light, s.din, s.dout);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  lp_move_candidates<<<tiles, TILE, 0, st>>>(
-      tgt, s.pmove, s.light, vw, s.din, s.dout, R, W, v0,
-      salt ^ 0x9E3779B9u, passes, s.newcw, s.movedin, moved, s.key[0],
-      s.row[0], s.ctr, s.hist, s.cstat);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  lp_move_sort_revert<<<1, TILE, 0, st>>>(
-      s.key[0], s.row[0], s.key[1], s.row[1], passes, s.hist, vw, s.newcw,
-      s.movedin, W, s.ctr, moved);
-  return (int)cudaGetLastError();
+  if (bad_shape(1, R, D, num_labels)) return (int)cudaErrorInvalidValue;
+  const ReqArgs q{nullptr, nullptr, nullptr, W, v0, salt};
+  return launch(nlab, nw, ncw, nbud, own, vw, 1, R, D, q, num_labels, moved,
+                tgt, scratch, stream);
+}
+
+// Chunk b of S requests at once: the slabs are (S, R, D), own / vw / moved
+// / tgt (S, R), and W, v0, salt (S,) device arrays, request s's chunk
+// giving exactly what lp_move_chunk gives it with (W[s], v0[s], salt[s]).
+// Every request's labels lie in [0, num_labels); scratch holds
+// lp_move_scratch_bytes(S, R, num_labels) bytes.
+extern "C" int lp_move_chunk_stacked(const int* nlab, const int* nw,
+                                     const int* ncw, const int* nbud,
+                                     const int* own, const int* vw, int S,
+                                     int R, int D, int num_labels,
+                                     const int* W, const int* v0,
+                                     const uint32_t* salt, int* moved,
+                                     int* tgt, void* scratch, void* stream) {
+  if (bad_shape(S, R, D, num_labels) || !W || !v0 || !salt)
+    return (int)cudaErrorInvalidValue;
+  const ReqArgs q{W, v0, salt, 0, 0, 0u};
+  return launch(nlab, nw, ncw, nbud, own, vw, S, R, D, q, num_labels, moved,
+                tgt, scratch, stream);
 }

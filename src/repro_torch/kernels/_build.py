@@ -13,7 +13,9 @@ if it is not 0.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on
 the card (never the plain-version calls): a run reads it to show which
-kernels its path went through.
+kernels its path went through. ``lp_move_stacked`` counts the stacked
+calls of the ``lp_move`` library (several requests' chunks at once)
+apart from its solo calls.
 
 Building, loading and counting are safe under threads (a session runs
 requests on a thread pool): one lock spans ``load``'s check, build and
@@ -40,7 +42,8 @@ SOURCES = ("lp_move", "seg_merge", "bal_round", "lp_gain", "bsr_spmm",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"lp_move": 0, "seg_merge": 0, "bal_scores": 0,
+LAUNCHES: Dict[str, int] = {"lp_move": 0, "lp_move_stacked": 0,
+                            "seg_merge": 0, "bal_scores": 0,
                             "greedy_pick": 0, "lp_gain": 0, "bsr_spmm": 0,
                             "embedding_bag": 0}
 

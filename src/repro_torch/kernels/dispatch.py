@@ -28,13 +28,17 @@ import torch
 KERNEL_MODES = ("auto", "fused", "composed")
 
 
+class NoCudaDevice(RuntimeError):
+    """CUDA was asked for (explicitly or by default) and none is there."""
+
+
 def resolve_device(device: Union[None, str, torch.device] = None
                    ) -> torch.device:
     """``None`` -> the current CUDA device. Raises when CUDA is asked for
     (explicitly or by default) but absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoCudaDevice(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU on purpose")
     return dev

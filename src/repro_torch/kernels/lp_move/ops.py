@@ -10,6 +10,11 @@ composed one.
 The lanes are padded to a multiple of a warp (32), not the TPU's 128:
 padded lanes are inert, so the result cannot change. Gathers of neighbor
 labels / cluster weights stay torch ops around the kernel.
+
+The stacked forms (``chunk_operands_stacked``,
+``cluster_iteration_fused_stacked``) carry a leading request axis: S
+requests' tables (S, N) and chunk b of each, (S, R, D), go through one
+stacked kernel call a chunk step, with no host round trip in the loop.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 
 from ...core import lp
 from ...core.lp import I32_MAX
-from .lp_move import lp_move_chunk
+from .lp_move import lp_move_chunk, lp_move_chunk_stacked
 
 LANE = 32           # ELL neighbor lanes padded to the warp width
 
@@ -134,4 +139,100 @@ def cluster_iteration_fused(labels, cluster_w, chunks_idx, chunks_w, v0s,
         labels, cluster_w = _chunk_step(
             labels, cluster_w, chunks_idx[b], chunks_w[b], int(v0s[b]),
             salt, vweights, W, R)
+    return labels, cluster_w
+
+
+# ---------------------------------------------------------------------------
+# the request axis: S requests' chunk b in one kernel call
+# ---------------------------------------------------------------------------
+
+def stacked_bytes(S: int, B: int, R: int, D: int, N: int) -> int:
+    """Peak device bytes of a stacked level-0 clustering of S requests
+    over (S, N) tables (``serve.batching._stacked_fused``): the two (B, S,
+    R, D) int32 chunk slabs and the three (S, N) int32 tables, plus the
+    larger of what is live beside them while the slabs are assembled (one
+    request's int32 slab copied in) and during a chunk step: per (S, R, D)
+    lane the bool lane mask, the first gathered operand, the second's
+    int32 index, the int64 copy the indexing op makes of it and the
+    gathered value (21 bytes), and at most 64 bytes a row and 12 a label
+    of (S, R) vectors and kernel scratch."""
+    step = S * R * D * (1 + 4 + 4 + 8 + 4) + 64 * S * R + 12 * S * N
+    return 2 * S * B * R * D * 4 + 3 * S * N * 4 + max(B * R * D * 4, step)
+
+
+def chunk_operands_stacked(labels, cluster_w, c_idx, v0, vweights):
+    """Gather chunk operands for S requests at once: ``(nlab, ncw, own,
+    vw, rows, in_table)``. ``labels``, ``cluster_w`` and ``vweights`` are
+    (S, N) tables, ``c_idx`` the (S, R, D) neighbour ids (-1 padding) of
+    one chunk of each, ``v0`` the (S,) int32 first rows on the device.
+    ``rows`` are the chunk rows' flat ids into the (S * N) tables, rows
+    past a request's table clamped to its last entry (JAX's clamping
+    gather) and flagged off in ``in_table``; they carry no arcs and never
+    move."""
+    S, N = labels.shape
+    R = c_idx.shape[1]
+    dev = labels.device
+    # int32 lane ids suffice: check_stack_limits holds S * N < 2^31
+    base = torch.arange(S, dtype=torch.int32, device=dev)[:, None] * N
+    r = v0.to(torch.int64)[:, None] + torch.arange(R, dtype=torch.int64,
+                                                   device=dev)
+    rows = base + torch.clamp(r, max=N - 1)
+    flat_l, flat_cw = labels.view(-1), cluster_w.view(-1)
+    valid = c_idx >= 0
+    base3 = base[:, :, None]
+    nlab = torch.where(valid, flat_l[torch.where(valid, c_idx + base3, 0)],
+                       -1)
+    ncw = torch.where(valid, flat_cw[torch.where(valid, nlab + base3, 0)],
+                      I32_MAX)
+    return nlab, ncw, flat_l[rows], vweights.view(-1)[rows], rows, r < N
+
+
+def _chunk_step_stacked(labels, cluster_w, c_idx, c_w, v0, salt, vweights,
+                        W):
+    """One chunk step of S requests: gather, one stacked kernel call,
+    apply every request's moves. ``labels`` and ``cluster_w`` change in
+    place."""
+    S, N = labels.shape
+    nlab, ncw, own, vwr, rows, in_table = chunk_operands_stacked(
+        labels, cluster_w, c_idx, v0, vweights)
+    moved, tgt = lp_move_chunk_stacked(nlab, c_w, ncw, own, vwr, W, v0,
+                                       salt, N)
+    mrow = moved != 0
+    # each row's new label as a difference from the one it read, so the
+    # clamped rows (JAX's dropped scatter writes) add 0 to the last entry
+    labels.view(-1).index_add_(0, rows.view(-1),
+                               torch.where(mrow & in_table, tgt - own,
+                                           0).view(-1))
+    base = torch.arange(S, dtype=torch.int64, device=labels.device)[:, None]
+    base *= N
+    vwm = torch.where(mrow, vwr, 0).view(-1)
+    flat_cw = cluster_w.view(-1)
+    flat_cw.index_add_(0, (tgt + base).view(-1), vwm)
+    flat_cw.index_add_(0, (own + base).view(-1), -vwm)
+    return labels, cluster_w
+
+
+def cluster_iteration_fused_stacked(labels, cluster_w, chunks_idx, chunks_w,
+                                    v0s, vweights, W, salts, *, n):
+    """``cluster_iteration_fused`` of S requests in lockstep: row ``s`` of
+    the result is bit-identical to the solo iteration of request ``s`` at
+    its own shape, padding being inert (rows and lanes past a request's
+    own carry ``-1`` lanes and never move; vertices past its table have
+    weight 0 and no arcs).
+
+    ``labels``, ``cluster_w``, ``vweights``: (S, n + 1) int32, the first
+    two updated in place and returned. ``chunks_idx``/``chunks_w``: (B,
+    S, R, D) int32, so chunk ``b`` of every request is one contiguous
+    slab. ``v0s``: (B, S) int32 chunk start rows; ``W``: (S,) int32;
+    ``salts``: (B, S) int32, this iteration's per-chunk salts (uint32 bit
+    patterns). All on one device: the chunk loop makes no host round
+    trip."""
+    B = chunks_idx.shape[0]
+    if labels.shape[1] != n + 1:
+        raise ValueError(f"cluster_iteration_fused_stacked: tables of "
+                         f"{labels.shape[1]} entries for n={n}")
+    for b in range(B):
+        labels, cluster_w = _chunk_step_stacked(
+            labels, cluster_w, chunks_idx[b], chunks_w[b], v0s[b], salts[b],
+            vweights, W)
     return labels, cluster_w

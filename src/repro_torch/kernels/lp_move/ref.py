@@ -107,3 +107,17 @@ def lp_move_chunk_ref(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     allowed = torch.clamp(W - (new_cw - moved_in), min=0)
     revert = cand & (within > allowed)
     return (mv & ~revert).to(torch.int32), tgt
+
+
+def lp_move_chunk_stacked_ref(nlab, nw, ncw, own, vw, W, v0, salt,
+                              num_labels: int, nbud=None):
+    """``(moved, tgt)`` (S, R) int32: ``lp_move_chunk_ref`` of each
+    request's chunk ``(nlab[s], ...)`` with ``(W[s], v0[s], salt[s])``
+    (``salt`` as int32 bit patterns), stacked."""
+    Ws, v0s, salts = (torch.as_tensor(x).tolist() for x in (W, v0, salt))
+    outs = [lp_move_chunk_ref(nlab[s], nw[s], ncw[s], own[s], vw[s], Ws[s],
+                              v0s[s], salts[s] & 0xFFFFFFFF, num_labels,
+                              nbud=None if nbud is None else nbud[s])
+            for s in range(nlab.shape[0])]
+    return (torch.stack([m for m, _ in outs]),
+            torch.stack([t for _, t in outs]))

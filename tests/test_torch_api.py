@@ -2,7 +2,8 @@
 package's, bit for bit: the paper's baselines (``random_balanced``,
 ``single_level_lp``, ``plain_mgp``) as functions and as backends,
 ``Partitioner.compare``, the single-device ``PartitionSession`` (its
-``BucketCache``, its lifecycle and what it does not port), the partition
+``BucketCache``, its lifecycle and what it does not port; its
+``submit_many`` in ``test_torch_batching.py``), the partition
 CLI as a subprocess, and the kernel build's lock under concurrent first
 loads (the compiler replaced by a stub).
 """
@@ -195,15 +196,13 @@ def test_session_validates_and_rejects_after_close():
 
 
 @pytest.mark.parametrize("what,item", [("devices", 5), ("mesh", 5),
-                                       ("shard_ctx", 5), ("submit_many", 4)])
+                                       ("shard_ctx", 5)])
 def test_unported_session_parts_raise(what, item):
-    req = api.PartitionRequest(graph=api.GraphSpec("rgg2d", 100), k=2)
     with api.PartitionSession(device=CPU) as sess:
         calls = {
             "devices": lambda: api.PartitionSession(devices=2, device=CPU),
             "mesh": lambda: api.PartitionSession(mesh=object(), device=CPU),
             "shard_ctx": lambda: sess.shard_ctx,
-            "submit_many": lambda: sess.submit_many([req, req]),
         }
         with pytest.raises(NotImplementedError,
                            match=f"queue 1 item {item}"):

@@ -120,6 +120,15 @@ def test_modules_walked_include_the_unconstrained_tier_and_facade():
         assert m in mods
 
 
+def test_modules_walked_include_the_serving_tier():
+    mods = _modules()
+    for m in ("repro_torch.serve", "repro_torch.serve.batching",
+              "repro_torch.serve.server", "repro_torch.serve.queue",
+              "repro_torch.serve.scheduler", "repro_torch.serve.metrics",
+              "repro_torch.launch.serve"):
+        assert m in mods
+
+
 def test_partition_cli_without_cuda_exits_nonzero_unless_cpu_is_asked_for():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.partition",
