@@ -32,16 +32,22 @@ exits non-zero if any one fails:
      first or anywhere, rows with no valid lane, hub rows of 160 and 256
      lanes, K = 8192 restricted, block tables summed from the labels);
      greedy_pick at K = 1, K = 2^20, pool ids out of [0, K) and M over
-     three of its 512-entry passes;
+     three of its 512-entry passes; lp_move and bal_scores on chunks
+     with heavy rows (more arcs than the slab's 32 lanes, the rest in
+     overflow: the kernels' heavy-row paths), among them a row of
+     30,000 arcs, a label (block) held in both the slab and the
+     overflow, a heavy row with no admissible target and one label over
+     30,000 arcs;
   3. the anchor: rgg2d n=4000, k=16, eps=0.03 with the benchmark config
      (C=256, 4 chunks, 2 IP repetitions) must give cut 819, feasible,
      under ``kernel="fused"`` and ``kernel="composed"``;
   4. the main path: ``Partitioner(backend="single").run`` on rgg2d
      n=2^20, k=16, preset ``fast``, fused, must give cut 15465 (the JAX
      reference's), feasible, with every kernel launched (launch counts
-     zeroed just before the run, read just after it). The port has no
-     fused-to-composed fallback: a fused call launches its kernel or
-     raises. Each lp_move call's count of phase-B candidates (by the plain
+     zeroed just before the run, read just after it): 120 lp_move calls
+     and no heavy-row launch (rgg2d's degrees fit the 32-lane slab). The
+     port has no fused-to-composed fallback: a fused call launches its
+     kernel or raises. Each lp_move call's count of phase-B candidates (by the plain
      version's rule on its inputs) is printed, and each seg_merge call's
      length, key width and radix passes; so are the seconds each trace
      phase spent in the host functions permute, degree_bucket_order,
@@ -131,7 +137,24 @@ exits non-zero if any one fails:
      coalesced, the three distinct level 0s stacked (launch counts
      checked), the batch's wall beside the solo walls. (d) ``python -m
      repro_torch.launch.serve --meshes 2 --requests 12 --n 4000 --k 8
-     --verify`` must exit 0.
+     --verify`` must exit 0. (e) 8b's burst through a port ``FrontDoor``
+     and two worker processes (``python -m repro_torch.launch.fabric
+     worker``, one ``PartitionServer(meshes=1)`` each, on the card):
+     every result ok in one attempt and equal to its solo run, both
+     workers serving, each exiting 0 after SIGTERM; its wall beside 8b's
+     and each worker process's CPU seconds;
+  9. hub graphs: ``Partitioner().run`` of ba at n=2^20 and rhg at 2^18
+     (both at 2^20 with ``--hubs-only``, which runs phases 1 and 9 only
+     and prints no contract line; seed 17, k=16, preset fast) at
+     ``kernel="auto"`` (fused, hub rows through the heavy-row paths) and
+     ``kernel="composed"`` on the card: equal cuts,
+     bit-identical assignments, no kernel-fallback record, every kernel
+     of the fused path launched and none by composed; each run's wall,
+     peak device memory and launch counts, the level-0 ELL slab and
+     overflow bytes beside the CSR's (held to the ``slab_width`` rule's
+     bound); the lp_move and bal_scores calls with the most heavy-row
+     lanes held to their plain versions (exact) and timed beside their
+     bounds (rows ``lp_move_heavy`` and ``bal_scores_heavy``).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -145,6 +168,7 @@ import itertools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -160,6 +184,7 @@ FULL_N = 1 << 20
 # rgg2d 2^20, k=16, preset fast: the JAX reference's cut on this tree
 # (tests/test_torch_e2e.py::test_full_size_on_gpu_matches_reference)
 FULL_CUT = 15465
+MAIN_LP_MOVE = 120        # lp_move calls of that run (5 levels)
 # the same request with refine="unconstrained", and its comparison: the
 # JAX reference's answers on the CPU (kernel="composed"), from
 # benchmarks/torch_reference_anchors.py. The trace as (phase, level, n, m,
@@ -213,7 +238,17 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                  "src/repro/kernels/bsr_spmm/bsr_spmm.py:47"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/embedding_bag.py:35"),
+    # the heavy-row paths of lp_move and bal_scores (rows wider than the
+    # capped ELL slab), launched inside those kernels' calls
+    "lp_move_heavy": ("src/repro_torch/csrc/lp_move.cu",
+                      "src/repro/kernels/lp_move/lp_move.py:197"),
+    "bal_scores_heavy": ("src/repro_torch/csrc/bal_round.cu",
+                         "src/repro/kernels/bal_round/bal_round.py:120"),
 }
+# phase 9: the hub graphs (seed 17) and their sizes; rhg runs at 2^18 to
+# keep the script within its time, both at 2^20 with --hubs-only
+HUB_SIZES = {"ba": 1 << 20, "rhg": 1 << 18}
+HUB_SIZES_FULL = {"ba": 1 << 20, "rhg": 1 << 20}
 MAIN_PATH = ("lp_move", "seg_merge", "bal_scores", "greedy_pick")
 # (rtol, atol) of a kernel against its plain version; the rest are exact
 TOLERANCE = {"bsr_spmm": (1e-5, 1e-5)}
@@ -371,7 +406,114 @@ def ragged_cases(torch, rng, dev):
         cases.append(("greedy_pick", bal_round.greedy_pick,
                       bal_ref.greedy_pick_ref, args, {},
                       *([what] if what else [])))
-    return cases + micro_ragged_cases(torch, rng, dev)
+    return cases + hub_cases(torch, rng, dev) + micro_ragged_cases(
+        torch, rng, dev)
+
+
+# chunks with heavy rows (more arcs than the slab's D = 32 lanes, the rest
+# in overflow): (R, {row: degree}, labels, what); "split" draws few labels,
+# so a heavy row holds one label in its slab and its overflow; "no
+# target" makes nothing admissible for row 0, which holds no own label
+HUB_CASES = ((4096, {7: 30000, **{r: 33 + 9 * r for r in range(9, 209)}},
+              3000, "hub rows: one of 30,000 arcs, 200 of 33-1824"),
+             (1000, {0: 40, 1: 30000, 5: 700}, 12, "split labels"),
+             (600, {0: 5000, 3: 64}, 50, "no target"),
+             (300, {2: 30000}, 1, "one label over 30,000 arcs"))
+
+
+def hub_graph(rng, R, hubs, N):
+    """CSR rows of a chunk (light rows of 0-32 arcs, tail rows empty,
+    ``hubs`` of their degree) over ids [0, N), and its slab of 32 lanes
+    and overflow (``ops.ell_rows``)."""
+    from repro_torch.kernels.lp_move import ops as lp_ops
+
+    degs = rng.integers(0, 33, R)
+    degs[R - R // 8:] = 0
+    for r, d in hubs.items():
+        degs[r] = d
+    indptr = np.zeros(R + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(degs)
+    adj = rng.integers(0, N, int(indptr[-1]))
+    w = rng.integers(1, 6, int(indptr[-1]))
+    idx = np.full((R, 32), -1, np.int32)
+    ew = np.zeros((R, 32), np.int32)
+    ov = lp_ops.ell_rows(indptr, adj, w, 0, R, idx, ew)
+    check(ov is not None and sorted(ov.rows.tolist()) == sorted(hubs),
+          "hub chunk: the heavy rows are not the hubs")
+    return idx, ew, ov
+
+
+def split_held(ov, idx, lab):
+    """Whether some heavy row holds one label in its slab and its
+    overflow."""
+    return any(set(lab[idx[r]].tolist()) &
+               set(lab[ov.idx[ov.ptr[h]:ov.ptr[h + 1]]].tolist())
+               for h, r in enumerate(ov.rows))
+
+
+def hub_cases(torch, rng, dev):
+    """lp_move and bal_scores on chunks with heavy rows (the kernels'
+    heavy-row paths), each against its plain version's split form."""
+    from repro_torch.kernels.bal_round import bal_round, ops as bal_ops
+    from repro_torch.kernels.bal_round import ref as bal_ref
+    from repro_torch.kernels.lp_move import lp_move, ref as lp_ref
+
+    cases = []
+    for R, hubs, nl, what in HUB_CASES:
+        W = 40
+        idx, ew, ov = hub_graph(rng, R, hubs, 4 * R)
+        lab = rng.integers(0, nl, 4 * R)
+        cw = rng.integers(0, 2 * W, nl)
+        own = rng.integers(0, nl, R)
+        if what == "no target":
+            cw[lab[idx[0]]] = W + 5
+            cw[lab[ov.idx[:ov.ptr[1]]]] = W + 5
+            own[0] = nl
+        if what == "split labels":
+            check(split_held(ov, idx, lab), "hub case: no split label")
+        valid = idx >= 0
+        nlab = np.where(valid, lab[np.maximum(idx, 0)], -1)
+        ncw = np.where(valid, cw[np.maximum(nlab, 0)], 2**31 - 1)
+        o_lab = lab[ov.idx]
+        args = [_i32(torch, x, dev) for x in (nlab, ew, ncw, own,
+                                              rng.integers(1, 4, R))]
+        over = tuple(_i32(torch, x, dev) for x in (
+            ov.rows, ov.ptr, o_lab, ov.w, cw[o_lab]))
+        cases.append(("lp_move", lp_move.lp_move_chunk,
+                      lp_ref.lp_move_chunk_ref,
+                      (*args, W, int(rng.integers(0, 1000)),
+                       int(rng.integers(0, 2**32)), nl + 1),
+                      dict(overflow=over), what))
+    for restricted, (R, hubs, K, what) in zip(
+            (False, True, False, True),
+            ((4096, {0: 30000, **{r: 40 + 11 * r for r in range(5, 150)}},
+              64, "hub rows: one of 30,000 arcs, 145 of 95-1679"),
+             (1000, {3: 30000, 8: 100}, 4, "split blocks"),
+             (2000, {1: 2000}, 8192, "K=8192"),
+             (500, {4: 30000}, 16, "one block over 30,000 arcs"))):
+        idx, ew, ov = hub_graph(rng, R, hubs, R)
+        n = R - R // 8
+        labels = rng.integers(0, K, R)
+        labels[rng.random(R) < 0.3] = 0
+        if what.startswith("one block"):
+            labels[:] = 0
+            labels[4] = 1
+        if what == "split blocks":
+            check(split_held(ov, idx, labels), "hub case: no split block")
+        vw = rng.integers(1, 7, R)
+        bw = np.bincount(labels[:n], weights=vw[:n], minlength=K)
+        lm = (bw.sum() / K * rng.uniform(0.9, 1.3, K)).astype(np.int64)
+        par = rng.integers(0, max(1, K // 4), K)
+        t = [_i32(torch, x, dev) for x in (idx, ew, labels, vw, bw, lm, par)]
+        fb = bal_ops.fallback_table(t[4], t[6], restricted)
+        kw = dict(overflow=tuple(_i32(torch, x, dev) for x in ov))
+        if restricted:
+            kw["parent"] = t[6]
+        cases.append(("bal_scores", bal_round.bal_scores,
+                      bal_ref.bal_scores_ell_ref,
+                      (*t[:6], fb, n, int(rng.integers(0, 2**32))), kw,
+                      what))
+    return cases
 
 
 # bal_scores' ragged cases: (R, D, K, restricted, what); "holes" puts -1
@@ -742,9 +884,8 @@ def candidate_count(args, kw):
     from repro_torch.kernels.lp_move import ref
 
     nlab, nw, ncw, own, vw, W, _, salt, num_labels = args
-    nbud = kw.get("nbud")
     mv, tgt, light = ref.move_targets_ref(nlab, nw, ncw, own, vw, W, salt,
-                                          nbud)
+                                          kw.get("nbud"), kw.get("overflow"))
     return ref.candidates_ref(mv, tgt, own, vw, light, W,
                               num_labels)[0].sum()
 
@@ -791,17 +932,18 @@ class Capture:
         self.inputs = {}
         self._undo = []
 
-    def wrap(self, module, attr, name, after=None):
+    def wrap(self, module, attr, name, after=None, size=None):
         """Wrap ``module.attr``; ``after(args, kw)``, if given, runs after
-        each call."""
+        each call. ``size(args, kw)`` ranks the calls (default: the first
+        argument's elements); a call it gives None is not kept."""
         fn = getattr(module, attr)
 
         def wrapped(*args, **kw):
-            size = args[0].numel()
-            if size >= self.inputs.get(name, (-1,))[0]:
+            n = args[0].numel() if size is None else size(args, kw)
+            if n is not None and n >= self.inputs.get(name, (-1,))[0]:
                 cl = (lambda x: x.clone() if isinstance(
                     x, self.torch.Tensor) else x)
-                self.inputs[name] = (size, fn, [cl(a) for a in args],
+                self.inputs[name] = (n, fn, [cl(a) for a in args],
                                      {k: cl(v) for k, v in kw.items()})
             out = fn(*args, **kw)
             if after is not None:
@@ -926,6 +1068,12 @@ def phase_main_path(torch, api, build, candidates, seg_calls):
           f"{FULL_CUT}, feasible")
     for name in MAIN_PATH:
         check(launches[name] > 0, f"main path: {name} was never launched")
+    check(launches["lp_move"] == MAIN_LP_MOVE
+          and launches["lp_move_heavy"] == launches["bal_scores_heavy"] == 0,
+          f"main path: {launches['lp_move']} lp_move launches and "
+          f"{launches['lp_move_heavy']} / {launches['bal_scores_heavy']} "
+          f"heavy-row launches; expected {MAIN_LP_MOVE} and none (rgg2d's "
+          "degrees fit the slab)")
     return g, launches, res, wall
 
 
@@ -1090,6 +1238,16 @@ def bound_parts(kind: str, args, kw, out):
                               if v is not None},
                              tuple(o[s] for o in out)) for s in range(S)]
         return sum(m for m, _ in parts), sum(o for _, o in parts)
+    if kind.endswith("_heavy"):
+        # the light call's count on the slab, plus each overflow arc read
+        # once and ~16 operations a lane of a heavy row (table insert,
+        # admission, the tie chain)
+        over = kw["overflow"]
+        moved, ops = bound_parts(kind[:-len("_heavy")], args,
+                                 {k: v for k, v in kw.items()
+                                  if k != "overflow"}, out)
+        lanes = over[0].numel() * args[0].shape[1] + over[2].numel()
+        return moved + nbytes(*over), ops + 16.0 * lanes
     tensors = [a for a in args if hasattr(a, "numel")]
     tensors += [v for v in kw.values() if hasattr(v, "numel")]
     outs = out if isinstance(out, tuple) else (out,)
@@ -2204,7 +2362,92 @@ def served_burst(torch, api, build):
     say(f"  8b the 6 distinct solo runs: {solo_wall:.3f} s, lp_move "
         f"{json.dumps(solo_lp)}, trace seconds by phase "
         f"{json.dumps(phase_seconds(solo.values()))}")
+    fabric_burst(api, reqs, best, solo, spec)
     return launches
+
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of process ``pid`` so far."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def fabric_burst(api, reqs, best, solo, spec):
+    """8e: 8b's burst through a port ``FrontDoor`` and two worker
+    processes (``python -m repro_torch.launch.fabric worker``: one
+    ``PartitionServer(meshes=1)`` each, on the card, each with its own
+    CUDA context and interpreter). Each worker first serves one small
+    request (the kernels' load and the CUDA context, not timed); then the
+    13 requests go in at once. Every result must be ok in one attempt and
+    equal its solo run (the 'best' request with a deadline downgraded to
+    fast), both workers must serve; the wall and each worker process's
+    CPU seconds over the burst are printed. The workers are stopped by
+    SIGTERM (a drain) and must exit 0."""
+    from repro_torch.fabric import FabricClient, FrontDoor
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    warm = api.PartitionRequest(graph=api.GraphSpec("rgg2d", 4000, 8.0,
+                                                    seed=17), k=16)
+    with FrontDoor(port=0, lease_ttl_s=30.0) as fd:
+        procs = {f"fw{i}": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.fabric", "worker",
+             "--frontdoor", f"{fd.host}:{fd.port}", "--server-id",
+             f"fw{i}", "--heartbeat-s", "1.0"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, text=True) for i in range(2)}
+        try:
+            t0 = time.perf_counter()
+            for sid, p in procs.items():
+                line = json.loads(p.stdout.readline() or "{}")
+                check(line.get("server_id") == sid,
+                      f"8e: worker {sid} did not start: {line}")
+            while len(fd.status()["servers"]) < 2:
+                check(time.perf_counter() - t0 < 120,
+                      "8e: the workers never registered")
+                time.sleep(0.05)
+            with FabricClient(fd.host, fd.port) as client:
+                w = [f.result(timeout=600) for f in
+                     [client.submit(warm) for _ in procs]]
+                start = time.perf_counter() - t0
+                check(all(r.ok for r in w) and {r.server for r in w}
+                      == set(procs), f"8e: warm-up {[r.summary() for r in w]}")
+                cpu0 = {sid: proc_cpu_s(p.pid) for sid, p in procs.items()}
+                t1 = time.perf_counter()
+                futs = [client.submit(r, priority=i % 2)
+                        for i, r in enumerate(reqs)]
+                futs.append(client.submit(best, deadline_s=600))
+                results = [f.result(timeout=900) for f in futs]
+                wall = time.perf_counter() - t1
+            cpu = {sid: proc_cpu_s(p.pid) - cpu0[sid]
+                   for sid, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            codes = []
+            for p in procs.values():
+                try:
+                    codes.append(p.wait(timeout=120))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    codes.append(p.wait(timeout=30))
+    for r, req in zip(results, reqs + [best]):
+        check(r.ok and r.attempts == 1,
+              f"8e: seed {req.seed}: {r.summary()}")
+        check(np.array_equal(r.assignment, solo[req.seed].assignment),
+              f"8e: the fabric's result of seed {req.seed} differs from "
+              "its solo run")
+    served = {sid: sum(r.server == sid for r in results) for sid in procs}
+    check(all(served.values()), f"8e: a worker served nothing: {served}")
+    check(codes == [0, 0], f"8e: worker exit codes {codes} after SIGTERM")
+    say(f"  8e fabric burst: rgg2d n={spec.n}, k=16, fast, the "
+        f"{len(results)} requests of 8b through a FrontDoor and 2 worker "
+        f"processes (one "
+        f"PartitionServer(meshes=1) each): all ok in one attempt, "
+        f"bit-identical to solo runs; wall {wall:.3f} s, throughput "
+        f"{len(results) / wall:.3f} requests/s; worker CPU seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in cpu.items()})} (sum "
+        f"{sum(cpu.values()):.3f}); served {json.dumps(served)}; workers "
+        f"up and warm after {start:.2f} s; exit codes {codes}")
 
 
 def served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
@@ -2302,8 +2545,172 @@ def phase_serving(torch, api, build, g, lp_run, lp_wall, un_run, un_wall,
 
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 9: hub graphs through the fused path (heavy rows) against composed
+# ---------------------------------------------------------------------------
+
+def heavy_lanes(args, kw):
+    """The heavy-row lanes (slab and overflow) of an ``lp_move`` or
+    ``bal_scores`` call, None without overflow. Its overflow tensors are
+    made anew for each call, so a kept call's need no copy."""
+    ov = kw.get("overflow")
+    if ov is None or not ov[0].numel():
+        return None
+    return ov[0].numel() * args[0].shape[1] + ov[2].numel()
+
+
+class BuildBytes:
+    """Wraps the ELL build functions (``build_move_chunks``,
+    ``build_balance_ell``) and keeps (function, n, m, shape, slab bytes,
+    overflow bytes) of every build."""
+
+    def __init__(self):
+        from repro_torch.kernels.bal_round import ops as bal_ops
+        from repro_torch.kernels.lp_move import ops as lp_ops
+
+        self.builds, self._undo = [], []
+        for module, attr in ((lp_ops, "build_move_chunks"),
+                             (bal_ops, "build_balance_ell")):
+            fn = getattr(module, attr)
+            setattr(module, attr, functools.partial(self._build, attr, fn))
+            self._undo.append((module, attr, fn))
+
+    def _build(self, attr, fn, g, *args, **kw):
+        out = fn(g, *args, **kw)
+        if attr == "build_move_chunks":
+            shape, (slab, over) = out.shape, out.nbytes
+        else:
+            shape, slab = out[0].shape, out[0].nbytes + out[1].nbytes
+            over = 0 if out[2] is None else sum(a.nbytes for a in out[2])
+        self.builds.append((attr, g.n, g.m, tuple(shape), slab, over))
+        return out
+
+    def restore(self):
+        for module, attr, fn in self._undo:
+            setattr(module, attr, fn)
+
+
+def hub_run(torch, api, build, g, kernel):
+    """One ``Partitioner().run`` of g (k=16, fast) at ``kernel``: (result,
+    wall, peak device bytes, launches)."""
+    build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = api.Partitioner().run(api.PartitionRequest(
+        graph=g, k=16, epsilon=0.03, preset="fast", kernel=kernel))
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            dict(build.LAUNCHES))
+
+
+def phase_hubs(torch, api, build, sizes=HUB_SIZES):
+    """ba and rhg at ``sizes`` (seed 17, k=16, fast) at kernel="auto" (fused:
+    heavy rows through the kernels' heavy-row paths) and "composed" on the
+    card: bit-identical assignments and equal cuts, each run's wall, peak
+    device memory and launch counts, the level-0 slab and overflow bytes
+    against the CSR's and the ``slab_width`` rule's bound; the calls with
+    the most heavy-row lanes held to their plain versions and timed.
+    Returns (kernel rows, launches by path)."""
+    from repro_torch.kernels.bal_round import ops as bal_ops
+    from repro_torch.kernels.bal_round.ref import bal_scores_ell_ref
+    from repro_torch.kernels.lp_move import ops as lp_ops
+    from repro_torch.kernels.lp_move.ref import lp_move_chunk_ref
+
+    say(f"== phase 9: hub graphs {sizes}, k=16, fast: fused "
+        "(kernel='auto') against composed on the card")
+    by_path, heavy = {}, {}
+    for fam, n in sizes.items():
+        t0 = time.perf_counter()
+        g = api.GraphSpec(fam, n, 8.0, seed=17).materialize()
+        gen = time.perf_counter() - t0
+        deg = np.diff(g.indptr)
+        cap, sizes = Capture(torch), BuildBytes()
+        cap.wrap(lp_ops, "lp_move_chunk", "lp_move_heavy", size=heavy_lanes)
+        cap.wrap(bal_ops, "bal_scores", "bal_scores_heavy", size=heavy_lanes)
+        try:
+            fused, f_wall, f_peak, f_launch = hub_run(torch, api, build, g,
+                                                      "auto")
+        finally:
+            cap.restore()
+            sizes.restore()
+        comp, c_wall, c_peak, c_launch = hub_run(torch, api, build, g,
+                                                 "composed")
+        check(np.array_equal(fused.assignment, comp.assignment)
+              and fused.cut == comp.cut and fused.feasible,
+              f"hub {fam}: fused cut {fused.cut} and composed cut "
+              f"{comp.cut} or their assignments differ")
+        check(not any(r["phase"] == "kernel-fallback" for r in fused.trace),
+              f"hub {fam}: a kernel-fallback record")
+        check(all(f_launch[k] > 0 for k in ("lp_move", "lp_move_heavy",
+                                            "seg_merge", "bal_scores",
+                                            "greedy_pick")),
+              f"hub {fam}: a kernel of the fused path was not launched: "
+              f"{f_launch}")
+        check(not any(c_launch.values()),
+              f"hub {fam}: the composed run launched kernels: {c_launch}")
+        by_path[f"hub_{fam}"] = f_launch
+        for name, call in cap.inputs.items():
+            if call[0] > heavy.get(name, ((-1,), None))[0][0]:
+                heavy[name] = (call, fam)
+        say(f"  {fam} n={g.n} m={g.m} max degree {int(deg.max())} (made in "
+            f"{gen:.2f} s): cut {fused.cut}, feasible, fused and composed "
+            "bit-identical")
+        say(f"  {fam} wall fused {f_wall:.3f} s, composed {c_wall:.3f} s; "
+            f"peak device memory fused {f_peak} B, composed {c_peak} B")
+        say(f"  {fam} launches fused {json.dumps(f_launch, sort_keys=True)}")
+        say(f"  {fam} trace seconds by phase, fused "
+            f"{json.dumps(phase_seconds([fused]))}, composed "
+            f"{json.dumps(phase_seconds([comp]))}")
+        # level 0's chunks and the finest level's balancer
+        kept = [[b for b in sizes.builds if b[0] == attr][pick]
+                for attr, pick in (("build_move_chunks", 0),
+                                   ("build_balance_ell", -1))
+                if any(b[0] == attr for b in sizes.builds)]
+        for attr, n, m, shape, slab, over in kept:
+            rows = int(np.prod(shape[:-1]))
+            parts = shape[0] if attr == "build_move_chunks" else 1
+            csr = 8 * m + 4 * (n + 1)
+            lim = 8 * (max(32 * rows, 2 * m) + m) + 4 * (2 * n + parts)
+            check(slab + over <= lim, f"hub {fam}: {attr} slab + overflow "
+                  f"{slab + over} B over the slab_width rule's {lim} B")
+            say(f"  {fam} {attr} n={n} m={m}: slab {shape} {slab} B, "
+                f"overflow {over} B, CSR {csr} B; (slab + overflow) / CSR "
+                f"{(slab + over) / csr:.3f} (rule's bound {lim} B)")
+    rows = []
+    for name in ("lp_move_heavy", "bal_scores_heavy"):
+        check(name in heavy, f"no {name} call on the hub paths")
+        (_, fn, args, kw), fam = heavy[name]
+        plain = {"lp_move_heavy": lp_move_chunk_ref,
+                 "bal_scores_heavy": bal_scores_ell_ref}[name]
+        say(f"  {name}: the {fam} call with the most heavy-row lanes "
+            f"({kw['overflow'][0].numel()} heavy rows, "
+            f"{kw['overflow'][2].numel()} overflow arcs)")
+        rows.append(held_and_timed(torch, name, fn, plain, list(args), kw,
+                                   20, sum(c[name] for c in
+                                           by_path.values())))
+    return rows, by_path
+
+
+def hubs_only(torch, api, build) -> int:
+    """``--hubs-only``: phases 1 and 9, both hub graphs at 2^20."""
+    smi = phase_environment(torch, build)
+    rows, _ = phase_hubs(torch, api, build, HUB_SIZES_FULL)
+    say(smi)
+    say(json.dumps({"kernels": rows}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--hubs-only", action="store_true",
+                    help="only build the kernels and run phase 9, with "
+                         "both hub graphs at 2^20 (no contract line)")
+    args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not under {SRC}",
@@ -2324,6 +2731,8 @@ def main() -> int:
 
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port pulled in the JAX package")
+    if args.hubs_only:
+        return hubs_only(torch, api, build)
     dev = torch.device("cuda", 0)
     # the plain versions' f32 products (bsr_spmm's einsum) in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2362,8 +2771,12 @@ def main() -> int:
                                              by_path)
     by_path.update(serve_paths)
     kernels.insert(1, stacked_row)
+    hub_rows, hub_paths = phase_hubs(torch, api, build)
+    by_path.update(hub_paths)
+    kernels[2:2] = hub_rows
     for row in kernels:
-        if row["name"] in MAIN_PATH + ("lp_move_stacked",):
+        if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
+                                       "bal_scores_heavy"):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}
     check("jax" not in sys.modules and "repro" not in sys.modules,

@@ -13,8 +13,7 @@ level-0 labels. Built-ins:
 The baselines being ordinary backends is what makes ``--compare`` "run
 the same request against N backends". The ``auto`` policy is the
 reference's, so a request that it sends to ``dist`` or ``dist-grid``
-raises until the distributed engine is ported (ROADMAP.md, queue 1
-item 5).
+raises until the distributed engine (``dist/``) is ported.
 """
 from __future__ import annotations
 
@@ -73,9 +72,9 @@ def is_batchable(name: str) -> bool:
 def get_backend(name: str) -> BackendFn:
     if name in DISTRIBUTED and name not in _REGISTRY:
         raise NotImplementedError(
-            f"backend {name!r}: the distributed engine is not ported to "
-            "repro_torch yet (ROADMAP.md, queue 1 item 5); run with "
-            "devices=1 or backend='single'")
+            f"backend {name!r}: the distributed engine (dist/) is not "
+            "ported to repro_torch yet; run with devices=1 or "
+            "backend='single'")
     try:
         return _REGISTRY[name]
     except KeyError:

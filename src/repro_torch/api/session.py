@@ -11,7 +11,7 @@ pure function of its fields.
 run, and with ``stack`` on distinct requests share one stacked level-0
 clustering. This port serves one device: the reference's multi-device
 sessions (a shared mesh, ``shard_ctx``) wait for the distributed engine
-(ROADMAP.md, queue 1 item 5) and raise ``NotImplementedError``.
+(``dist/``, not ported yet) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ from .partitioner import Partitioner
 from .request import GraphSpec, PartitionRequest
 from .result import PartitionResult
 
-_NO_DIST = ("the distributed engine is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 5)")
+_NO_DIST = "the distributed engine (dist/) is not ported to repro_torch yet"
 
 
 class BucketCache:

@@ -141,8 +141,9 @@ def rebalance(g: Graph,
     fused_ell = None
     if dispatch.resolve_kernel_mode(kernel, dev) == "fused":
         from ..kernels.bal_round import ops as bal_ops
-        idx, ew = bal_ops.build_balance_ell(g, n_pad)
-        fused_ell = (on_dev(idx), on_dev(ew))
+        idx, ew, ov = bal_ops.build_balance_ell(g, n_pad, device=dev)
+        fused_ell = (on_dev(idx), on_dev(ew),
+                     None if ov is None else tuple(on_dev(x) for x in ov))
     else:
         src, dst, w = (on_dev(x[0]) for x in (chunks.src, chunks.dst,
                                                chunks.w))
@@ -153,7 +154,7 @@ def rebalance(g: Graph,
             labels_t, block_w_t, overloaded = bal_ops.balance_round_fused(
                 labels_t, block_w_t, l_max_t, parent_t, fused_ell[0],
                 fused_ell[1], vw_t, n, salt, top_m=top_m,
-                restricted=restricted)
+                restricted=restricted, overflow=fused_ell[2])
         else:
             labels_t, block_w_t, overloaded = balance_round(
                 labels_t, block_w_t, l_max_t, parent_t, src, dst, w, vw_t,

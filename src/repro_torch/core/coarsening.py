@@ -65,13 +65,15 @@ def enforce_cluster_weights(labels: np.ndarray, vweights: np.ndarray,
 
 
 def cluster_prepare(g: Graph, num_chunks: int, seed: int,
-                    kernel: str = "composed"):
+                    kernel: str = "composed", device=None):
     """Host-side setup: seeded degree-bucket reorder, permuted graph,
     padded chunk slabs. Returns ``(perm, g2, chunks)``.
 
     ``kernel="fused"`` builds ELL slabs for the ``lp_move`` kernel instead
     of arc slabs; both describe identical vertex ranges
-    (``lp.chunk_bounds``)."""
+    (``lp.chunk_bounds``). Their bytes are checked against the host's
+    limit and the free memory of ``device`` (CUDA) before they are built
+    (``dispatch.EllTooLarge``)."""
     n = g.n
     rng = np.random.default_rng(seed)
     order = degree_bucket_order(g, rng)
@@ -79,7 +81,8 @@ def cluster_prepare(g: Graph, num_chunks: int, seed: int,
     perm[order] = np.arange(n)
     g2, _ = permute(g, perm)
     if kernel == "fused":
-        return perm, g2, move_ops.build_move_chunks(g2, num_chunks)
+        return perm, g2, move_ops.build_move_chunks(g2, num_chunks,
+                                                    device=device)
     return perm, g2, lp.build_chunks(g2, num_chunks)
 
 
@@ -118,21 +121,34 @@ def cluster(g: Graph,
     if n <= 1:
         return np.zeros(n, dtype=np.int64)
     mode = dispatch.resolve_kernel_mode(kernel, dev)
-    perm, g2, chunks = cluster_prepare(g, num_chunks, seed, kernel=mode)
+    perm, g2, chunks = cluster_prepare(g, num_chunks, seed, kernel=mode,
+                                       device=dev)
+    W = max(1, int(max_cluster_weight))
+    labels = cluster_labels(g2, chunks, W, num_iterations, seed, dev)
+    return cluster_finish(labels.cpu().numpy(), g2, perm, W)
+
+
+def cluster_labels(g2: Graph, chunks, W: int, num_iterations: int,
+                   seed: int, dev) -> torch.Tensor:
+    """The LP iterations of ``cluster`` on ``cluster_prepare``'s output:
+    the padded (n_pad + 1,) int32 labels on ``dev``."""
+    n = g2.n
     np_pad = chunks.n_pad
     labels = torch.arange(np_pad + 1, dtype=torch.int32, device=dev)
     vw_np = np.zeros(np_pad + 1, dtype=np.int32)
     vw_np[:n] = g2.vweights
     vw = torch.from_numpy(vw_np).to(dev)
     cluster_w = vw.clone()
-    W = max(1, int(max_cluster_weight))
     if isinstance(chunks, move_ops.MoveChunks):
         idx = torch.from_numpy(chunks.idx).to(dev)
         cw_slab = torch.from_numpy(chunks.w).to(dev)
+        overflow = [None if o is None else
+                    tuple(torch.from_numpy(x).to(dev) for x in o)
+                    for o in chunks.overflow]
         for it in range(num_iterations):
             labels, cluster_w = move_ops.cluster_iteration_fused(
                 labels, cluster_w, idx, cw_slab, chunks.v0, vw, W,
-                cluster_seed(seed, it), n=np_pad)
+                cluster_seed(seed, it), n=np_pad, overflow=overflow)
     else:
         src = torch.from_numpy(chunks.src).to(dev)
         dst = torch.from_numpy(chunks.dst).to(dev)
@@ -141,4 +157,4 @@ def cluster(g: Graph,
             labels, cluster_w = lp.cluster_iteration(
                 labels, cluster_w, src, dst, w, vw, W,
                 cluster_seed(seed, it), n=np_pad)
-    return cluster_finish(labels.cpu().numpy(), g2, perm, W)
+    return labels

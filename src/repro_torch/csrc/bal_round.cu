@@ -50,6 +50,18 @@
 // --use_fast_math, so int-to-float conversion rounds to nearest and '/' is
 // IEEE division.
 //
+// bal_scores_heavy: the slab's width is capped (kernels/lp_move/ops.py::
+// slab_width), so a hub keeps its first D arcs in the slab and the rest in
+// an overflow CSR. After bal_scores (which scores a heavy row on its slab
+// lanes alone), one CTA a heavy row rescores it over the whole row and
+// overwrites its outputs: the CTA clears the row's open-addressing table
+// in global scratch (2 slots a lane), adds each arc's weight into its
+// block's slot (int32 atomics, exact in any order; a warp's lanes of one
+// block add up first), then walks the distinct blocks with the admission
+// and the tie chain of warp_row, as four CTA reductions, and writes the
+// row by put_row. Bound: the heavy rows' lanes (8 bytes each, plus a label
+// gather), read once; the tables stay in L2.
+//
 // greedy_pick replaces kernels/bal_round/bal_round.py::greedy_pick (body
 // _pick_kernel): the sequential greedy application of the ranked pool of M
 // candidates against the K-entry block-weight table. It is M dependent
@@ -401,6 +413,91 @@ bal_scores_rows(const int* __restrict__ idx, const int* __restrict__ ew,
   if (bad) __trap();
 }
 
+// The heavy rows, one CTA each, after bal_scores_rows: hrow[h] is the row,
+// hptr[h] .. hptr[h + 1] its overflow arcs (oidx / ow), after its D slab
+// lanes. tab holds 4 (H D + hptr[H]) ints: row h's table of T = 2 (D + its
+// overflow) slots (key, conn) at 4 (h D + hptr[h]).
+template <bool RES>
+__global__ void __launch_bounds__(HEAVY)
+bal_scores_heavy_rows(const int* __restrict__ idx, const int* __restrict__ ew,
+                      const int* __restrict__ labels,
+                      const int* __restrict__ vw, const int* __restrict__ bw,
+                      const int* __restrict__ lm, const int* __restrict__ par,
+                      const int* __restrict__ fb, int R, int D, int n, int K,
+                      uint32_t salt, const int* __restrict__ hrow,
+                      const int* __restrict__ hptr,
+                      const int* __restrict__ oidx,
+                      const int* __restrict__ ow, int* __restrict__ tab,
+                      float* __restrict__ rel, int* __restrict__ tgt) {
+  __shared__ int sh[33];
+  __shared__ int s_oc;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x, r = hrow[h];
+  if (r < 0 || r >= R) __trap();
+  const int a0 = hptr[h], lanes = D + (hptr[h + 1] - a0), T = 2 * lanes;
+  int* key = tab + (size_t)4 * ((size_t)h * D + a0);
+  int* conn = key + T;
+  for (int i = threadIdx.x; i < T; i += HEAVY) {
+    key[i] = 0;
+    conn[i] = 0;
+  }
+  if (threadIdx.x == 0) s_oc = 0;
+  __syncthreads();
+  bool bad = false;
+  const size_t row = (size_t)r * D;
+  for (int j0 = 0; j0 < lanes; j0 += HEAVY) {   // uniform: whole warps
+    const int j = j0 + threadIdx.x;
+    int id = -1, x = 0;
+    if (j < D) {
+      id = __ldg(idx + row + j);
+      if (id >= 0) x = __ldg(ew + row + j);
+    } else if (j < lanes) {
+      id = oidx[a0 + (j - D)];
+      x = ow[a0 + (j - D)];
+    }
+    const int l = id >= 0 ? block_of(labels, id, R, K, bad) : -1;
+    const unsigned grp = __match_any_sync(FULL_MASK, l);
+    if (l >= 0) {
+      const int sum = (int)__reduce_add_sync(grp, (unsigned)x);
+      if (lane == __ffs(grp) - 1) atomicAdd(conn + claim_slot(key, T, l), sum);
+    }
+  }
+  __syncthreads();
+  Own w = own_row(r, labels, vw, R, K, bad);
+  own_tables<RES>(w, bw, lm, par, fb, K, bad);
+  int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX;
+  for (int i = threadIdx.x; i < T; i += HEAVY) {
+    const int k = key[i];
+    if (k == 0) continue;
+    const int l = k - 1, c = conn[i];
+    if (l == w.o) {
+      s_oc = c;   // one slot holds the own block
+      continue;
+    }
+    const int nb = __ldg(bw + l);
+    const bool ok = nb <= wsub(__ldg(lm + l), w.v) &&
+                    (!RES || __ldg(par + l) == w.op);
+    if (ok && c >= 0) {
+      const int hh = h32(l, salt);
+      if (better(c, nb, hh, l, bs, bc, bh, bl)) {
+        bs = c; bc = nb; bh = hh; bl = l;
+      }
+    }
+  }
+  if (bad) __trap();
+  // the tie chain over the CTA: max score, then the lightest block, the
+  // smallest hash, the smallest label
+  const int smax = cta_reduce<true>(bs, sh);
+  bool tie = bs == smax;
+  const int cmin = cta_reduce<false>(tie ? bc : I32_MAX, sh);
+  tie = tie && bc == cmin;
+  const int hmin = cta_reduce<false>(tie ? bh : I32_MAX, sh);
+  tie = tie && bh == hmin;
+  const int best = cta_reduce<false>(tie ? bl : I32_MAX, sh);
+  if (threadIdx.x == 0)
+    put_row(r, n, w, smax, smax >= 0 ? best : 0, s_oc, rel, tgt);
+}
+
 // ---- greedy_pick ---------------------------------------------------------
 
 constexpr int POOL = 512;          // pool entries a pass stages (threads)
@@ -515,9 +612,6 @@ __global__ void smem_chase(int steps, long long* out) {
 // ell_idx / ell_w (R, D) row-major, labels / vw R entries, the block
 // tables bw / lm / fb (and par, or nullptr for the unrestricted form) K
 // entries. Rows r >= n are not movable. R, D, K >= 1.
-// ell_idx / ell_w (R, D) row-major, labels / vw R entries, the block
-// tables bw / lm / fb (and par, or nullptr for the unrestricted form) K
-// entries. Rows r >= n are not movable. R, D, K >= 1.
 extern "C" int bal_scores(const int* ell_idx, const int* ell_w,
                           const int* labels, const int* vw, const int* bw,
                           const int* lm, const int* par, const int* fb,
@@ -534,6 +628,31 @@ extern "C" int bal_scores(const int* ell_idx, const int* ell_w,
                            : bal_scores_rows<false, false>);
   kernel<<<grid, WARPS * 32, 0, s>>>(ell_idx, ell_w, labels, vw, bw, lm, par,
                                      fb, R, D, n, K, salt, rel, tgt);
+  return (int)cudaGetLastError();
+}
+
+// After bal_scores on the same operands: rescore the H >= 1 heavy rows hrow
+// (distinct, in [0, R); each of more than D lanes, its first D in the
+// slab) over their whole rows, their further arcs at hptr[h] .. hptr[h +
+// 1] of oidx / ow (M in all). tab: 4 (H D + M) ints of scratch in any
+// state.
+extern "C" int bal_scores_heavy(const int* ell_idx, const int* ell_w,
+                                const int* labels, const int* vw,
+                                const int* bw, const int* lm, const int* par,
+                                const int* fb, int R, int D, int n, int K,
+                                uint32_t salt, int H, const int* hrow,
+                                const int* hptr, const int* oidx,
+                                const int* ow, int M, int* tab, float* rel,
+                                int* tgt, void* stream) {
+  if (R < 1 || D < 1 || K < 1 || H < 1 || M < 0 || !hrow || !hptr ||
+      (M && (!oidx || !ow)) ||
+      2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = par ? bal_scores_heavy_rows<true>
+                    : bal_scores_heavy_rows<false>;
+  kernel<<<H, HEAVY, 0, (cudaStream_t)stream>>>(
+      ell_idx, ell_w, labels, vw, bw, lm, par, fb, R, D, n, K, salt, hrow,
+      hptr, oidx, ow, tab, rel, tgt);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // Shared device code of the port's kernels: the uint32 mix hash, int32
-// arithmetic that wraps like XLA's, and the CTA-wide pieces of the radix
+// arithmetic that wraps like XLA's, the CTA-wide pieces of the radix
 // sorts of lp_move and seg_merge (scans, the stable rank of a tile's
-// digits, the decoupled look-back over tiles).
+// digits, the decoupled look-back over tiles), and the per-row label
+// tables and CTA reductions of the heavy-row paths of lp_move and
+// bal_scores.
 //
 // Every source includes this header and builds into its own shared
 // library, so everything here has internal linkage (static / anonymous
@@ -12,6 +14,7 @@
 #include <stdint.h>
 
 #define I32_MAX 2147483647
+#define I32_MIN (-I32_MAX - 1)
 #define FULL_MASK 0xFFFFFFFFu
 
 namespace {
@@ -239,6 +242,46 @@ __device__ int lookback_sum_warp(uint64_t* st, int tile, int agg,
   }
   if (lane == 0) vstore(st + tile, status(incl, excl + agg));
   return excl;
+}
+
+// ---- heavy rows: a row too wide for the ELL slab is taken by one CTA,
+// which sums its arcs' weights per distinct label in an open-addressing
+// table of T >= 2 x (its lanes) slots in global scratch (keys label + 1, 0
+// empty), then runs the tie chain over the table by CTA reductions. -----
+
+constexpr int HEAVY = 256;      // threads of a heavy-row CTA
+
+// The slot of label l >= 0 in the table `key` of T slots, claimed if new.
+// T exceeds the labels the row holds, so a free slot is always found.
+__device__ __forceinline__ int claim_slot(int* key, int T, int l) {
+  unsigned s = ((uint32_t)l * 2654435761u) % (unsigned)T;
+  for (;;) {
+    const int prev = atomicCAS(key + s, 0, l + 1);
+    if (prev == 0 || prev == l + 1) return (int)s;
+    s = s + 1 == (unsigned)T ? 0u : s + 1;
+  }
+}
+
+// Max (MAX) or min of x over the CTA (blockDim.x a multiple of 32, at most
+// 1024); every thread gets it. sh: 33 ints of shared memory, free again
+// on return.
+template <bool MAX>
+__device__ int cta_reduce(int x, int* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = MAX ? __reduce_max_sync(FULL_MASK, x) : __reduce_min_sync(FULL_MASK, x);
+  if (lane == 0) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int y = lane < (int)(blockDim.x >> 5) ? sh[lane] : (MAX ? I32_MIN
+                                                             : I32_MAX);
+    y = MAX ? __reduce_max_sync(FULL_MASK, y)
+            : __reduce_min_sync(FULL_MASK, y);
+    if (lane == 0) sh[32] = y;
+  }
+  __syncthreads();
+  const int r = sh[32];
+  __syncthreads();
+  return r;
 }
 
 }  // namespace

@@ -61,6 +61,26 @@
 // salt come from (S,) device arrays, so a stacked call is the same 4
 // launches (one memset clears every request's tables) whatever S is. The
 // solo call is the S = 1 case with its three scalars.
+//
+// Heavy rows (lp_move_heavy). The slab's width is capped (kernels/lp_move/
+// ops.py::slab_width), so a hub keeps its first D arcs in the slab and the
+// rest in an overflow CSR (rows, ptr, and the arcs' label, weight and
+// cluster weight). One hub of rhg 2^20 has 30,127 arcs, whose (label,
+// weight) pairs outgrow a CTA's shared memory, and phase A's tile-against-
+// tile walk costs O(D^2 / 32) a row, so such rows take a path of their
+// own, launched before phase A: one CTA a heavy row clears the row's
+// open-addressing table in global scratch (2 slots a lane), adds every
+// arc's weight into its label's slot with int32 atomics (exact in any
+// order; a warp's lanes of one label add up first, by __match_any_sync,
+// so a label that fills the row costs one atomic a warp, not one a lane),
+// then walks the distinct labels: admission, the four-stage tie chain as
+// four CTA reductions, own_conn from the own label's slot; and writes tgt,
+// pmove, light and the d_in / d_out atomics as move_row does. Phase A
+// skips the rows the heavy CTAs flagged; phase B is unchanged. The tie
+// chain is a total order over distinct labels and connectivity an exact
+// int32 sum, so splitting a row cannot change its argmax. Bound: the
+// heavy rows' lanes, read once (12 bytes each), plus the tables' traffic,
+// which stays in L2. The stacked call takes no overflow.
 #include "common.cuh"
 
 namespace {
@@ -187,7 +207,8 @@ __global__ void __launch_bounds__(WARPS * 32)
 lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
              const int* __restrict__ ncw, const int* __restrict__ nbud,
              const int* __restrict__ own, const int* __restrict__ vw, int R,
-             int D, ReqArgs q, int num_labels, int* __restrict__ tgt,
+             int D, ReqArgs q, int num_labels,
+             const int* __restrict__ heavy, int* __restrict__ tgt,
              int* __restrict__ pmove, int* __restrict__ light,
              int* __restrict__ din, int* __restrict__ dout) {
   const int lane = threadIdx.x & 31;
@@ -219,9 +240,109 @@ lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
   }
 #pragma unroll
   for (int k = 0; k < ROWS; ++k)
-    if (r0 + k < R)
+    if (r0 + k < R && !(heavy && heavy[r0 + k]))  // heavy: lp_move_heavy's
       move_row(nlab, nw, ncw, nbud, r0 + k, D, W, salt, num_labels, l[k],
                w[k], c[k], b[k], o[k], v[k], tgt, pmove, light, din, dout);
+}
+
+// The heavy rows, one CTA each (solo calls only): hrow[h] is the row,
+// hptr[h] .. hptr[h + 1] its overflow arcs (olab / ow / ocw), after its D
+// slab lanes. tab holds 6 (H D + hptr[H]) ints: row h's table of T = 2
+// (D + its overflow) slots (key, conn, cw) at 6 (h D + hptr[h]).
+__global__ void __launch_bounds__(HEAVY)
+lp_move_heavy(const int* __restrict__ nlab, const int* __restrict__ nw,
+              const int* __restrict__ ncw, const int* __restrict__ own,
+              const int* __restrict__ vw, int R, int D, int W, uint32_t salt,
+              int num_labels, const int* __restrict__ hrow,
+              const int* __restrict__ hptr, const int* __restrict__ olab,
+              const int* __restrict__ ow, const int* __restrict__ ocw,
+              int* __restrict__ tab, int* __restrict__ heavy,
+              int* __restrict__ tgt, int* __restrict__ pmove,
+              int* __restrict__ light, int* __restrict__ din,
+              int* __restrict__ dout) {
+  __shared__ int sh[33];
+  __shared__ int s_oc;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x, r = hrow[h];
+  if (r < 0 || r >= R) __trap();
+  const int a0 = hptr[h], lanes = D + (hptr[h + 1] - a0), T = 2 * lanes;
+  int* key = tab + (size_t)6 * ((size_t)h * D + a0);
+  int* conn = key + T;
+  int* cw = conn + T;
+  for (int i = threadIdx.x; i < T; i += HEAVY) {
+    key[i] = 0;
+    conn[i] = 0;
+    cw[i] = I32_MAX;
+  }
+  if (threadIdx.x == 0) {
+    heavy[r] = 1;
+    s_oc = 0;
+  }
+  __syncthreads();
+  const size_t row = (size_t)r * D;
+  for (int j0 = 0; j0 < lanes; j0 += HEAVY) {   // uniform: whole warps
+    const int j = j0 + threadIdx.x;
+    int l = -1, x = 0, c = 0;
+    if (j < D) {
+      l = nlab[row + j];
+      if (l >= 0) {
+        x = nw[row + j];
+        c = ncw[row + j];
+      }
+    } else if (j < lanes) {
+      const int a = a0 + (j - D);
+      l = olab[a];
+      x = ow[a];
+      c = ocw[a];
+    }
+    const unsigned grp = __match_any_sync(FULL_MASK, l);
+    if (l >= 0) {
+      const int sum = (int)__reduce_add_sync(grp, (unsigned)x);
+      const int cmin = __reduce_min_sync(grp, c);
+      if (lane == __ffs(grp) - 1) {
+        const int slot = claim_slot(key, T, l);
+        atomicAdd(conn + slot, sum);
+        atomicMin(cw + slot, cmin);
+      }
+    }
+  }
+  __syncthreads();
+  const int o = own[r], v = vw[r];
+  int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX;
+  for (int i = threadIdx.x; i < T; i += HEAVY) {
+    const int k = key[i];
+    if (k == 0) continue;
+    const int l = k - 1, cn = conn[i], cj = cw[i];
+    const bool stay = l == o;
+    const int score = (stay || wadd(cj, v) <= W) ? cn : -1;
+    const int hj = h32(l, salt);
+    if (better(score, cj, hj, l, bs, bc, bh, bl)) {
+      bs = score; bc = cj; bh = hj; bl = l;
+    }
+    if (stay) s_oc = cn;   // one slot holds label o
+  }
+  // the tie chain over the CTA, one key at a time
+  const int s_best = cta_reduce<true>(bs, sh);
+  bool is_best = bs == s_best;
+  const int c_best = cta_reduce<false>(is_best ? bc : I32_MAX, sh);
+  is_best = is_best && bc == c_best;
+  const int h_best = cta_reduce<false>(is_best ? bh : I32_MAX, sh);
+  is_best = is_best && bh == h_best;
+  const int l_best = cta_reduce<false>(is_best ? bl : I32_MAX, sh);
+  if (threadIdx.x == 0) {
+    const int own_conn = s_oc;
+    const bool mv = s_best > own_conn && l_best != o && l_best < I32_MAX &&
+                    s_best > 0;
+    tgt[r] = mv ? l_best : o;
+    pmove[r] = mv ? 1 : 0;
+    light[r] = c_best;
+    if (mv) {
+      check_label(l_best, num_labels);
+      check_label(o, num_labels);
+      atomicAdd(&din[l_best], v);
+      atomicAdd(&dout[o], v);
+    }
+  }
 }
 
 // ---- phase B -----------------------------------------------------------
@@ -362,17 +483,22 @@ lp_move_sort_revert(uint64_t* k0, int* r0, uint64_t* k1, int* r1,
 // Scratch layout, 256-byte aligned pieces, each holding S requests' parts
 // one after the other. Everything from din on is cleared by one memset per
 // call.
+// The heavy rows' tables (6 ints a lane of theirs, cleared by their CTAs)
+// and flags (one a row, zeroed) are there only when H > 0.
 struct Scratch {
   int *pmove, *light, *newcw;
   uint64_t* key[2];
   int* row[2];
+  int* tab;
   int *din, *dout, *movedin, *ctr, *hist;
   uint64_t* cstat;
+  int* heavy;
   char* zero;
   size_t zero_bytes;
 };
 
-size_t carve(char* base, int S, int R, int num_labels, Scratch* s) {
+size_t carve(char* base, int S, int R, int num_labels, int H, int64_t lanes,
+             Scratch* s) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
@@ -388,6 +514,7 @@ size_t carve(char* base, int S, int R, int num_labels, Scratch* s) {
     s->key[i] = (uint64_t*)take(8 * r);
     s->row[i] = (int*)take(4 * r);
   }
+  s->tab = H ? (int*)take(24 * (size_t)lanes) : nullptr;
   const size_t zero_from = off;
   s->din = (int*)take(4 * nl);
   s->dout = (int*)take(4 * nl);
@@ -395,6 +522,7 @@ size_t carve(char* base, int S, int R, int num_labels, Scratch* s) {
   s->ctr = (int*)take(4 * (size_t)S * N_COUNTERS);
   s->hist = (int*)take(4 * (size_t)S * MAX_PASSES * RADIX);
   s->cstat = (uint64_t*)take(8 * tiles);
+  s->heavy = H ? (int*)take(4 * r) : nullptr;
   s->zero = base ? base + zero_from : nullptr;
   s->zero_bytes = off - zero_from;
   return off;
@@ -413,21 +541,36 @@ bool bad_shape(int S, int R, int D, int num_labels) {
          (int64_t)S * num_labels >= ((int64_t)1 << 31);
 }
 
+// The heavy rows of a solo call: H of them, their overflow (hrow, hptr,
+// olab, ow, ocw) of M arcs.
+struct Heavy {
+  int H, M;
+  const int *hrow, *hptr, *olab, *ow, *ocw;
+};
+
 int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
            const int* own, const int* vw, int S, int R, int D,
-           ReqArgs q, int num_labels, int* moved, int* tgt, void* scratch,
-           void* stream) {
+           ReqArgs q, int num_labels, const Heavy& hv, int* moved, int* tgt,
+           void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Scratch s;
-  carve((char*)scratch, S, R, num_labels, &s);
+  carve((char*)scratch, S, R, num_labels, hv.H,
+        (int64_t)hv.H * D + hv.M, &s);
   const int passes = key_passes(num_labels);
   const int tiles = (R + TILE - 1) / TILE;
   cudaError_t err = cudaMemsetAsync(s.zero, 0, s.zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
+  if (hv.H) {
+    lp_move_heavy<<<hv.H, HEAVY, 0, st>>>(
+        nlab, nw, ncw, own, vw, R, D, q.W1, q.salt1, num_labels, hv.hrow,
+        hv.hptr, hv.olab, hv.ow, hv.ocw, s.tab, s.heavy, tgt, s.pmove,
+        s.light, s.din, s.dout);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   lp_move_rows<<<dim3((R + WARPS * ROWS - 1) / (WARPS * ROWS), S),
                  WARPS * 32, 0, st>>>(nlab, nw, ncw, nbud, own, vw, R, D, q,
-                                      num_labels, tgt, s.pmove, s.light,
-                                      s.din, s.dout);
+                                      num_labels, s.heavy, tgt, s.pmove,
+                                      s.light, s.din, s.dout);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   lp_move_candidates<<<dim3(tiles, S), TILE, 0, st>>>(
       tgt, s.pmove, s.light, vw, s.din, s.dout, R, q, num_labels, passes,
@@ -442,29 +585,42 @@ int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
 }  // namespace
 
 // Bytes of scratch a call needs for S requests (1: lp_move_chunk) of R rows
-// and num_labels labels.
-extern "C" int lp_move_scratch_bytes(int S, int R, int num_labels,
-                                     int64_t* bytes) {
-  if (bad_shape(S, R, 1, num_labels)) return (int)cudaErrorInvalidValue;
+// and num_labels labels, H of them heavy with `lanes` slab and overflow
+// lanes in all (H D + M; 0 without heavy rows).
+extern "C" int lp_move_scratch_bytes(int S, int R, int num_labels, int H,
+                                     int lanes, int64_t* bytes) {
+  if (bad_shape(S, R, 1, num_labels) || H < 0 || lanes < 0 ||
+      (H && S != 1))
+    return (int)cudaErrorInvalidValue;
   Scratch s;
-  *bytes = (int64_t)carve(nullptr, S, R, num_labels, &s);
+  *bytes = (int64_t)carve(nullptr, S, R, num_labels, H, lanes, &s);
   return 0;
 }
 
 // nbud == nullptr selects the host admission form (fit_sum). Labels in
 // own / nlab (and hence targets) must lie in [0, num_labels); a mover's
-// label outside it stops the kernel (__trap). scratch holds
-// lp_move_scratch_bytes(1, R, num_labels) bytes, 256-byte aligned, in any
-// state; moved and tgt hold R ints each.
+// label outside it stops the kernel (__trap). H heavy rows hrow (distinct,
+// in [0, R); each of more than D lanes, its first D in the slab) have
+// their further arcs at hptr[h] .. hptr[h + 1] of olab / ow / ocw (M in
+// all; the lanes of one label carry one cluster weight); H == 0 needs none
+// of them, and H > 0 only the host form. scratch holds
+// lp_move_scratch_bytes(1, R, num_labels, H, H D + M) bytes, 256-byte
+// aligned, in any state; moved and tgt hold R ints each.
 extern "C" int lp_move_chunk(const int* nlab, const int* nw, const int* ncw,
                              const int* nbud, const int* own, const int* vw,
                              int R, int D, int W, int v0, uint32_t salt,
-                             int num_labels, int* moved, int* tgt,
+                             int num_labels, int H, const int* hrow,
+                             const int* hptr, const int* olab, const int* ow,
+                             const int* ocw, int M, int* moved, int* tgt,
                              void* scratch, void* stream) {
-  if (bad_shape(1, R, D, num_labels)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(1, R, D, num_labels) || H < 0 || M < 0 ||
+      (H && (nbud || !hrow || !hptr || (M && (!olab || !ow || !ocw)))) ||
+      2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
   const ReqArgs q{nullptr, nullptr, nullptr, W, v0, salt};
-  return launch(nlab, nw, ncw, nbud, own, vw, 1, R, D, q, num_labels, moved,
-                tgt, scratch, stream);
+  const Heavy hv{H, M, hrow, hptr, olab, ow, ocw};
+  return launch(nlab, nw, ncw, nbud, own, vw, 1, R, D, q, num_labels, hv,
+                moved, tgt, scratch, stream);
 }
 
 // Chunk b of S requests at once: the slabs are (S, R, D), own / vw / moved
@@ -482,6 +638,7 @@ extern "C" int lp_move_chunk_stacked(const int* nlab, const int* nw,
   if (bad_shape(S, R, D, num_labels) || !W || !v0 || !salt)
     return (int)cudaErrorInvalidValue;
   const ReqArgs q{W, v0, salt, 0, 0, 0u};
-  return launch(nlab, nw, ncw, nbud, own, vw, S, R, D, q, num_labels, moved,
-                tgt, scratch, stream);
+  const Heavy none{0, 0, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch(nlab, nw, ncw, nbud, own, vw, S, R, D, q, num_labels, none,
+                moved, tgt, scratch, stream);
 }

@@ -42,8 +42,9 @@ SOURCES = ("lp_move", "seg_merge", "bal_round", "lp_gain", "bsr_spmm",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {"lp_move": 0, "lp_move_stacked": 0,
-                            "seg_merge": 0, "bal_scores": 0,
+LAUNCHES: Dict[str, int] = {"lp_move": 0, "lp_move_heavy": 0,
+                            "lp_move_stacked": 0, "seg_merge": 0,
+                            "bal_scores": 0, "bal_scores_heavy": 0,
                             "greedy_pick": 0, "lp_gain": 0, "bsr_spmm": 0,
                             "embedding_bag": 0}
 

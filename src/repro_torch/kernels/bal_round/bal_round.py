@@ -5,7 +5,9 @@ JAX package's Pallas kernels ``repro/kernels/bal_round/bal_round.py::
 bal_scores`` and ``::greedy_pick``; ``bal_scores`` also does the gathers
 that fed the TPU kernel its pre-gathered slabs, reading the ELL ids and the
 block tables itself. A CPU tensor runs the plain version (``ref``); a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. Heavy rows (arcs beyond a capped
+slab, ``overflow``) are then rescored by the kernel's heavy-row path,
+counted apart as ``bal_scores_heavy``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from .ref import NEG_INF, bal_scores_ell_ref, greedy_pick_ref
 
 _SIG = {"bal_scores": [_build.P] * 8 + [_build.I] * 4 + [_build.U]
         + [_build.P] * 3,
+        "bal_scores_heavy": [_build.P] * 8 + [_build.I] * 4 + [_build.U]
+        + [_build.I] + [_build.P] * 4 + [_build.I] + [_build.P] * 4,
         "greedy_pick": [_build.P] * 6 + [_build.I] * 2 + [_build.P] * 3,
         "smem_chase_cycles": [_build.I, _build.P, _build.P]}
 
@@ -23,14 +27,17 @@ __all__ = ["NEG_INF", "bal_scores", "greedy_pick"]
 
 
 def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
-               n: int, salt: int, parent=None):
+               n: int, salt: int, parent=None, overflow=None):
     """Per-vertex relative gains + targets, ``(rel, tgt)`` (R,) f32 /
     int32; the contract of ``ref.bal_scores_ell_ref``. ``ell_idx`` /
     ``ell_w`` (R, D) int32 (-1 / 0 padding), ``labels`` / ``vw`` (R,),
-    the block tables (K,) int32; ``parent`` selects the restricted form."""
+    the block tables (K,) int32; ``parent`` selects the restricted form;
+    ``overflow`` ``(rows, ptr, idx, w)`` int32 the heavy rows' arcs beyond
+    the slab."""
     if ell_idx.device.type == "cpu":
         return bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
-                                  fb_of_block, n, salt, parent=parent)
+                                  fb_of_block, n, salt, parent=parent,
+                                  overflow=overflow)
     if ell_idx.device.type != "cuda":
         raise ValueError(f"bal_scores: unsupported device {ell_idx.device}")
     R, D = ell_idx.shape
@@ -51,16 +58,36 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
         raise ValueError(f"bal_scores: empty operands (R={R}, D={D}, K={K})")
     if R >= 2**31:
         raise ValueError(f"bal_scores: {R} rows exceed the launch limit")
+    H = 0
+    if overflow is not None and overflow[0].shape[0]:
+        H, M = overflow[0].shape[0], overflow[2].shape[0]
+        req("bal_scores overflow rows", overflow[0], torch.int32, (H,), dev)
+        req("bal_scores overflow ptr", overflow[1], torch.int32, (H + 1,),
+            dev)
+        req("bal_scores overflow idx", overflow[2], torch.int32, (M,), dev)
+        req("bal_scores overflow w", overflow[3], torch.int32, (M,), dev)
+        if not 2 * (H * D + M) < 2**31:
+            raise ValueError(f"bal_scores: {H} heavy rows of {H * D + M} "
+                             "lanes exceed the heavy tables' int32 slots")
     lib = _build.load("bal_round", _SIG)
     rel = torch.empty(R, dtype=torch.float32, device=dev)
     tgt = torch.empty(R, dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = lib.bal_scores(
-        p(ell_idx), p(ell_w), p(labels), p(vw), p(block_w), p(l_max),
-        p(parent), p(fb_of_block), R, D, max(0, min(int(n), R)), K,
-        int(salt) & 0xFFFFFFFF, p(rel), p(tgt), _build.stream_of(ell_idx))
+    args = (p(ell_idx), p(ell_w), p(labels), p(vw), p(block_w), p(l_max),
+            p(parent), p(fb_of_block), R, D, max(0, min(int(n), R)), K,
+            int(salt) & 0xFFFFFFFF)
+    err = lib.bal_scores(*args, p(rel), p(tgt), _build.stream_of(ell_idx))
     _build.check(err, "bal_scores")
     _build.count_launch("bal_scores")
+    if H:
+        # the heavy rows' label tables (2 slots a lane, key and sum),
+        # cleared by their CTAs
+        tab = torch.empty(4 * (H * D + M), dtype=torch.int32, device=dev)
+        err = lib.bal_scores_heavy(*args, H, *(p(t) for t in overflow), M,
+                                   p(tab), p(rel), p(tgt),
+                                   _build.stream_of(ell_idx))
+        _build.check(err, "bal_scores_heavy")
+        _build.count_launch("bal_scores_heavy")
     return rel, tgt
 
 

@@ -8,7 +8,9 @@ lanes; the per-round work is the K-entry fallback table, the two kernels
 pool sort: no (rows, D) tensor is built per round. The sentinel and
 padded rows carry no arcs and are masked (rows ``>= n``) exactly as the
 composed path masks them, so (labels, block_w) trajectories are
-bit-identical.
+bit-identical. The slab's width is capped as the LP move kernel's is
+(``lp_move.ops.slab_width``); a hub's arcs beyond it go to an
+``Overflow``, which ``bal_scores`` takes by its heavy-row path.
 """
 from __future__ import annotations
 
@@ -16,23 +18,32 @@ import numpy as np
 import torch
 
 from ...core.lp import I32_MAX, segment_min
-from ..lp_move.ops import LANE, _round_up, ell_from_csr
+from .. import dispatch
+from ..lp_move import ops as move_ops
 from .bal_round import bal_scores, greedy_pick
 
 
-def build_balance_ell(g, n_pad: int):
+def build_balance_ell(g, n_pad: int, device=None):
     """(n_pad + 1, D) neighbor-id / weight ELL over the label-table row
-    space; -1 / 0 padding."""
+    space, -1 / 0 padding, and the heavy rows' ``Overflow`` (or None):
+    ``(idx, w, overflow)``. Raises ``dispatch.EllTooLarge`` before it
+    allocates when the build would not fit the host, or the card
+    (``device``, CUDA)."""
     deg = np.diff(g.indptr)
-    D = _round_up(int(deg.max()) if deg.size else 1, LANE)
-    idx = np.full((n_pad + 1, D), -1, dtype=np.int32)
-    w = np.zeros((n_pad + 1, D), dtype=np.int32)
-    idx_full, w_full = ell_from_csr(np.asarray(g.indptr),
-                                    np.asarray(g.adjncy, dtype=np.int64),
-                                    np.asarray(g.eweights), D)
-    idx[:g.n] = idx_full
-    w[:g.n] = w_full
-    return idx, w
+    rows = n_pad + 1
+    D = move_ops.slab_width(deg, rows)
+    slab, over, temp = move_ops.split_bytes(deg, rows, D, 1)
+    # on the card: the slabs, the overflow and the heavy rows' label
+    # tables (16 bytes a lane of theirs)
+    dispatch.check_ell_bytes("build_balance_ell", (rows, D),
+                             slab + over + temp,
+                             slab + over + 16 * int(deg[deg > D].sum()),
+                             device)
+    idx = np.full((rows, D), -1, dtype=np.int32)
+    w = np.zeros((rows, D), dtype=np.int32)
+    overflow = move_ops.ell_rows(np.asarray(g.indptr), g.adjncy,
+                                 g.eweights, 0, g.n, idx, w)
+    return idx, w, overflow
 
 
 def fallback_table(block_w, parent, restricted: bool):
@@ -51,25 +62,27 @@ def fallback_table(block_w, parent, restricted: bool):
 
 
 def fused_round_scores(labels, bw, l_max, parent, ell_idx, ell_w, vw_pad,
-                       n: int, salt: int, *, restricted: bool):
-    """``bal_scores`` on the ELL form and the block tables; its fallback
-    targets composed with K-sized ops exactly as
-    ``core.balance.balance_gains`` composes them."""
+                       n: int, salt: int, *, restricted: bool,
+                       overflow=None):
+    """``bal_scores`` on the ELL form (and its overflow, as tensors) and
+    the block tables; its fallback targets composed with K-sized ops
+    exactly as ``core.balance.balance_gains`` composes them."""
     fb = fallback_table(bw, parent, restricted)
     return bal_scores(ell_idx, ell_w, labels, vw_pad, bw, l_max, fb, n, salt,
-                      parent=parent if restricted else None)
+                      parent=parent if restricted else None,
+                      overflow=overflow)
 
 
 def balance_round_fused(labels, block_w, l_max, parent, ell_idx, ell_w,
                         vweights, n: int, salt: int, *, top_m: int,
-                        restricted: bool = False):
+                        restricted: bool = False, overflow=None):
     """Fused twin of ``core.balance.balance_round``: same pool ranking,
     same accept rule, bit-identical (labels, block_w) trajectory; rows
     ``>= n`` (padding and the sentinel) never move. Updates ``labels`` in
     place and returns it."""
     rel, tgt = fused_round_scores(labels, block_w, l_max, parent, ell_idx,
                                   ell_w, vweights, n, salt,
-                                  restricted=restricted)
+                                  restricted=restricted, overflow=overflow)
     # lax.top_k order: descending, ties to the lower index (torch.topk
     # breaks ties differently; a stable descending sort does not)
     vidx = torch.sort(rel, descending=True, stable=True).indices[:top_m]

@@ -18,6 +18,12 @@ There is no fallback from "fused" to "composed": the kernels tile across
 CTAs, so the TPU path's VMEM gate has no counterpart. A fused call whose
 operands exceed a kernel's launch limits (int32 ids and weight totals,
 2^30 sort length) raises; ``kernel="composed"`` is the caller's choice.
+So does an ELL build whose bytes exceed ``HOST_ELL_LIMIT_BYTES`` on the
+host or the card's free memory (``EllTooLarge``, checked from the degree
+array before anything is allocated). The slab width is capped
+(``kernels/lp_move/ops.py::slab_width``), so a fused build stays within a
+small constant of the CSR's bytes and only a graph whose CSR is itself
+near the limits meets this error.
 """
 from __future__ import annotations
 
@@ -27,9 +33,35 @@ import torch
 
 KERNEL_MODES = ("auto", "fused", "composed")
 
+# bytes an ELL build (slabs, overflow and the build's temporaries) may
+# take on the host
+HOST_ELL_LIMIT_BYTES = 16 << 30
+
 
 class NoCudaDevice(RuntimeError):
     """CUDA was asked for (explicitly or by default) and none is there."""
+
+
+class EllTooLarge(RuntimeError):
+    """An ELL build would exceed its byte limit: the host's
+    ``HOST_ELL_LIMIT_BYTES`` or the card's free memory."""
+
+
+def check_ell_bytes(what: str, shape, host_bytes: int, device_bytes: int,
+                    device=None) -> None:
+    """Raise ``EllTooLarge`` unless ``host_bytes`` fit the host limit and,
+    on a CUDA ``device``, ``device_bytes`` fit its free memory."""
+    if host_bytes > HOST_ELL_LIMIT_BYTES:
+        raise EllTooLarge(
+            f"{what}: the ELL form {tuple(shape)} needs {host_bytes} bytes "
+            f"on the host, over the limit of {HOST_ELL_LIMIT_BYTES} "
+            "(kernels.dispatch.HOST_ELL_LIMIT_BYTES)")
+    if device is not None and torch.device(device).type == "cuda":
+        free = torch.cuda.mem_get_info(torch.device(device))[0]
+        if device_bytes > free:
+            raise EllTooLarge(
+                f"{what}: the ELL form {tuple(shape)} needs {device_bytes} "
+                f"bytes on the card, over its {free} free bytes")
 
 
 def resolve_device(device: Union[None, str, torch.device] = None

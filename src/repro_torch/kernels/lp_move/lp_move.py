@@ -6,6 +6,9 @@ port of the JAX package's Pallas kernel
 runs the same step for S requests in one call (the serving tier's
 stacked level-0 clustering). A CPU tensor runs the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises.
+
+A chunk with heavy rows (arcs beyond the slab, ``overflow``) also runs
+the kernel's heavy-row path, counted apart as ``lp_move_heavy``.
 """
 from __future__ import annotations
 
@@ -18,34 +21,37 @@ from .. import _build
 from .ref import lp_move_chunk_ref, lp_move_chunk_stacked_ref
 
 _SIG = {"lp_move_chunk": [_build.P] * 6 + [_build.I] * 4 + [_build.U]
-        + [_build.I] + [_build.P] * 4,
+        + [_build.I] * 2 + [_build.P] * 5 + [_build.I] + [_build.P] * 4,
         "lp_move_chunk_stacked": [_build.P] * 6 + [_build.I] * 4
         + [_build.P] * 7,
-        "lp_move_scratch_bytes": [_build.I] * 3 + [_build.P]}
+        "lp_move_scratch_bytes": [_build.I] * 5 + [_build.P]}
 
 # the kernel's grid takes the request from blockIdx.y
 MAX_STACK = 65535
 
 
 @functools.lru_cache(maxsize=64)
-def _scratch_bytes(S: int, R: int, num_labels: int) -> int:
+def _scratch_bytes(S: int, R: int, num_labels: int, H: int = 0,
+                   lanes: int = 0) -> int:
     """Bytes of scratch the kernel needs for S requests (1: a solo call)
-    of R rows."""
+    of R rows, H of them heavy with ``lanes`` lanes in all."""
     lib = _build.load("lp_move", _SIG)
     n = ctypes.c_int64()
-    _build.check(lib.lp_move_scratch_bytes(S, R, num_labels,
+    _build.check(lib.lp_move_scratch_bytes(S, R, num_labels, H, lanes,
                                            ctypes.addressof(n)), "lp_move")
     return n.value
 
 
 def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
-                  num_labels: int, nbud=None):
+                  num_labels: int, nbud=None, overflow=None):
     """``(moved, tgt)`` (R,) int32 for one ELL chunk; the contract of
     ``ref.lp_move_chunk_ref``. ``num_labels`` sizes the kernel's
-    label-indexed weight tables: every label must lie below it."""
+    label-indexed weight tables: every label must lie below it.
+    ``overflow``: ``(rows, ptr, nlab, nw, ncw)`` int32 of the chunk's
+    heavy rows (``ops.overflow_operands``), host admission form only."""
     if nlab.device.type == "cpu":
         return lp_move_chunk_ref(nlab, nw, ncw, own, vw, W, v0, salt,
-                                 num_labels, nbud=nbud)
+                                 num_labels, nbud=nbud, overflow=overflow)
     if nlab.device.type != "cuda":
         raise ValueError(f"lp_move_chunk: unsupported device {nlab.device}")
     R, D = nlab.shape
@@ -59,19 +65,40 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
         raise ValueError(f"lp_move_chunk: R={R}, D={D}, num_labels="
                          f"{num_labels} outside the launch limits [1, 2^31)"
                          " (int32 row ids and labels)")
+    H, M, hv = 0, 0, (None,) * 5
+    if overflow is not None and overflow[0].shape[0]:
+        if nbud is not None:
+            raise ValueError("lp_move_chunk: overflow rows take the host "
+                             "admission form only (nbud is None)")
+        hv = overflow
+        H, M = hv[0].shape[0], hv[2].shape[0]
+        _build.require("lp_move_chunk overflow rows", hv[0], torch.int32,
+                       (H,), dev)
+        _build.require("lp_move_chunk overflow ptr", hv[1], torch.int32,
+                       (H + 1,), dev)
+        for name, t in zip(("nlab", "nw", "ncw"), hv[2:]):
+            _build.require(f"lp_move_chunk overflow {name}", t, torch.int32,
+                           (M,), dev)
+        if not 2 * (H * D + M) < 2**31:
+            raise ValueError(f"lp_move_chunk: {H} heavy rows of {H * D + M}"
+                             " lanes exceed the heavy tables' int32 slots")
     lib = _build.load("lp_move", _SIG)
     moved, tgt = torch.empty((2, R), dtype=torch.int32, device=dev)
     # the kernel's scratch, one allocation apart from the outputs so that
     # they do not keep it alive (the kernel clears what it needs cleared)
-    scratch = torch.empty(_scratch_bytes(1, R, int(num_labels)),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(
+        _scratch_bytes(1, R, int(num_labels), H, H * D + M),
+        dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = lib.lp_move_chunk(
         p(nlab), p(nw), p(ncw), p(nbud), p(own), p(vw), R, D, int(W),
-        int(v0), int(salt) & 0xFFFFFFFF, int(num_labels), p(moved), p(tgt),
-        p(scratch), _build.stream_of(nlab))
+        int(v0), int(salt) & 0xFFFFFFFF, int(num_labels), H,
+        *(p(t) for t in hv), M, p(moved), p(tgt), p(scratch),
+        _build.stream_of(nlab))
     _build.check(err, "lp_move")
     _build.count_launch("lp_move")
+    if H:
+        _build.count_launch("lp_move_heavy")
     return moved, tgt
 
 

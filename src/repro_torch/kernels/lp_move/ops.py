@@ -11,23 +11,51 @@ The lanes are padded to a multiple of a warp (32), not the TPU's 128:
 padded lanes are inert, so the result cannot change. Gathers of neighbor
 labels / cluster weights stay torch ops around the kernel.
 
+Hub rows. The slab's width D is the largest degree rounded up to a warp,
+capped by ``slab_width``'s rule: D_cap = max(32, 32 * floor(2 m / (32
+rows))) for ``rows`` slab rows over ``m`` arcs, so the slab holds at
+most max(32 rows, 2 m) lanes. A row of a larger degree keeps its first D
+arcs in the slab; the rest go to its chunk's ``Overflow`` (CSR form, at
+most m arcs in all), and the kernel takes such rows by a path of their
+own. Slab plus overflow therefore stay within max(32 rows, 2 m) + m
+lanes (8 bytes each), at most 3x the CSR's 8 m arc bytes once m >= 16
+rows; below that, a warp's 32 lanes a row bound the slab, as before the
+cap. A graph whose largest degree is at most 32 (the rgg2d main path)
+has no overflow at all. Every build checks its bytes from the degree
+array before it allocates (``dispatch.check_ell_bytes``).
+
 The stacked forms (``chunk_operands_stacked``,
 ``cluster_iteration_fused_stacked``) carry a leading request axis: S
 requests' tables (S, N) and chunk b of each, (S, R, D), go through one
 stacked kernel call a chunk step, with no host round trip in the loop.
+They take no overflow: the batcher serves a request with overflow rows
+solo.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...core import lp
 from ...core.lp import I32_MAX
+from .. import dispatch
 from .lp_move import lp_move_chunk, lp_move_chunk_stacked
 
 LANE = 32           # ELL neighbor lanes padded to the warp width
+SLAB_ARC_FACTOR = 2  # D_cap: slab lanes <= max(LANE * rows, 2 m)
+
+
+class Overflow(NamedTuple):
+    """The arcs of a slab's heavy rows beyond its D lanes, in CSR form:
+    heavy row ``rows[h]`` (slab-local, ascending) owns arcs ``ptr[h] ..
+    ptr[h + 1]`` of ``idx`` / ``w``, which follow its D slab lanes."""
+    rows: np.ndarray  # (H,) int32
+    ptr: np.ndarray   # (H + 1,) int32, ptr[0] == 0
+    idx: np.ndarray   # (M_ov,) int32 neighbor ids
+    w: np.ndarray     # (M_ov,) int32 arc weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +65,8 @@ class MoveChunks:
     Row ``r`` of chunk ``b`` is vertex ``v0[b] + r``; rows beyond the
     chunk's true vertex range (and neighbor lanes beyond a vertex's
     degree) carry sentinel ``idx = -1`` / ``w = 0`` and can never move.
+    ``overflow[b]`` holds chunk b's arcs beyond the slab's D lanes, or
+    None.
     """
     idx: np.ndarray   # (B, R, D) int32 neighbor vertex ids, -1 padding
     w: np.ndarray     # (B, R, D) int32 arc weights, 0 padding
@@ -44,56 +74,112 @@ class MoveChunks:
     n: int            # true vertex count
     n_pad: int        # padded vertex count == composed sentinel id
     num_chunks: int
+    overflow: Tuple[Optional[Overflow], ...]
 
     @property
     def shape(self):
         return self.idx.shape
+
+    @property
+    def has_overflow(self) -> bool:
+        return any(o is not None for o in self.overflow)
+
+    @property
+    def nbytes(self) -> Tuple[int, int]:
+        """(slab, overflow) bytes."""
+        return (self.idx.nbytes + self.w.nbytes,
+                sum(sum(a.nbytes for a in o) for o in self.overflow
+                    if o is not None))
 
 
 def _round_up(x: int, mult: int) -> int:
     return ((max(x, 1) + mult - 1) // mult) * mult
 
 
-def ell_from_csr(indptr: np.ndarray, adjncy: np.ndarray,
-                 eweights: np.ndarray, D: int):
-    """Dense (n, D) neighbor-id / weight tables from CSR; -1 / 0 padding."""
-    n = indptr.shape[0] - 1
-    deg = np.diff(indptr)
-    idx = np.full((n, D), -1, dtype=np.int32)
-    w = np.zeros((n, D), dtype=np.int32)
-    if adjncy.shape[0]:
-        rows = np.repeat(np.arange(n), deg)
-        pos = np.arange(adjncy.shape[0]) - np.repeat(indptr[:-1], deg)
-        idx[rows, pos] = adjncy
-        w[rows, pos] = eweights
-    return idx, w
+def slab_width(deg: np.ndarray, rows: int) -> int:
+    """The ELL width D of ``rows`` slab rows over a graph of degrees
+    ``deg``: the largest degree rounded up to a warp, capped at D_cap =
+    max(LANE, LANE * floor(SLAB_ARC_FACTOR * m / (LANE * rows)))."""
+    full = _round_up(int(deg.max()) if deg.size else 1, LANE)
+    m = int(deg.sum())
+    cap = max(LANE, LANE * (SLAB_ARC_FACTOR * m // (LANE * max(rows, 1))))
+    return min(full, cap)
 
 
-def build_move_chunks(g, num_chunks: int) -> MoveChunks:
+def split_bytes(deg: np.ndarray, rows: int, D: int, parts: int
+                ) -> Tuple[int, int, int]:
+    """Bytes of an ELL build of ``rows`` slab rows of width D over degrees
+    ``deg`` in ``parts`` chunks: ``(slab, overflow, temporaries)``, the
+    int32 slabs, the overflow (rows, pointers, arcs) and ``ell_rows``'
+    host temporaries (two int64 and one bool an arc, counted for all
+    arcs)."""
+    extra = np.maximum(deg.astype(np.int64) - D, 0)
+    heavy = int(np.count_nonzero(extra))
+    return (8 * rows * D, 4 * (2 * heavy + parts) + 8 * int(extra.sum()),
+            17 * int(deg.sum()))
+
+
+def ell_rows(indptr: np.ndarray, adjncy: np.ndarray, eweights: np.ndarray,
+             r0: int, r1: int, idx: np.ndarray, w: np.ndarray
+             ) -> Optional[Overflow]:
+    """Fill the (>= r1 - r0, D) tables ``idx`` / ``w`` with the first D
+    arcs of vertices ``r0 .. r1`` (row ``v - r0``) and return the arcs
+    beyond them as an ``Overflow`` (None when there are none)."""
+    D = idx.shape[1]
+    deg = np.diff(indptr[r0:r1 + 1])
+    a0, a1 = int(indptr[r0]), int(indptr[r1])
+    if a1 > a0:
+        rows = np.repeat(np.arange(r1 - r0), deg)
+        pos = np.arange(a1 - a0) - np.repeat(indptr[r0:r1] - a0, deg)
+        keep = pos < D
+        idx[rows[keep], pos[keep]] = adjncy[a0:a1][keep]
+        w[rows[keep], pos[keep]] = eweights[a0:a1][keep]
+    heavy = np.flatnonzero(deg > D)
+    if heavy.size == 0:
+        return None
+    extra = deg[heavy] - D
+    ptr = np.zeros(heavy.size + 1, dtype=np.int64)
+    np.cumsum(extra, out=ptr[1:])
+    arc = np.repeat(indptr[r0 + heavy] + D - ptr[:-1], extra) \
+        + np.arange(ptr[-1])
+    return Overflow(rows=heavy.astype(np.int32), ptr=ptr.astype(np.int32),
+                    idx=np.asarray(adjncy[arc], dtype=np.int32),
+                    w=np.asarray(eweights[arc], dtype=np.int32))
+
+
+def build_move_chunks(g, num_chunks: int, device=None) -> MoveChunks:
     """ELL twin of ``core.lp.build_chunks`` (same bounds; pow-2 rows,
-    warp-multiple neighbor width)."""
+    warp-multiple neighbor width capped by ``slab_width``, hub arcs in
+    per-chunk overflow). Raises ``dispatch.EllTooLarge`` before it
+    allocates when the build would not fit the host, or the card
+    (``device``, CUDA)."""
     if g.total_eweight >= 2**31 or g.total_vweight >= 2**31:
         raise ValueError(
             f"build_move_chunks: total vertex/edge weight "
             f"({g.total_vweight}/{g.total_eweight}) must be < 2^31")
     n = g.n
+    n_pad = lp._next_pow2(n)
     bounds = lp.chunk_bounds(g, num_chunks)
     B = len(bounds) - 1
     deg = np.diff(g.indptr)
-    D = _round_up(int(deg.max()) if deg.size else 1, LANE)
     R = lp._next_pow2(max(bounds[b + 1] - bounds[b] for b in range(B)))
-    idx_full, w_full = ell_from_csr(np.asarray(g.indptr),
-                                    np.asarray(g.adjncy, dtype=np.int64),
-                                    np.asarray(g.eweights), D)
+    D = slab_width(deg, B * R)
+    slab, over, temp = split_bytes(deg, B * R, D, B)
+    # on the card: the slabs, tables and a chunk step (stacked_bytes at
+    # S = 1), the overflow and its gathered labels and cluster weights
+    dispatch.check_ell_bytes("build_move_chunks", (B, R, D),
+                             slab + over + temp,
+                             stacked_bytes(1, B, R, D, n_pad + 1) + 2 * over,
+                             device)
     idx = np.full((B, R, D), -1, dtype=np.int32)
     w = np.zeros((B, R, D), dtype=np.int32)
-    for b in range(B):
-        r0, r1 = bounds[b], bounds[b + 1]
-        idx[b, :r1 - r0] = idx_full[r0:r1]
-        w[b, :r1 - r0] = w_full[r0:r1]
+    indptr = np.asarray(g.indptr)
+    overflow = tuple(ell_rows(indptr, g.adjncy, g.eweights, bounds[b],
+                              bounds[b + 1], idx[b], w[b])
+                     for b in range(B))
     return MoveChunks(idx=idx, w=w,
                       v0=np.asarray(bounds[:-1], dtype=np.int32),
-                      n=n, n_pad=lp._next_pow2(n), num_chunks=B)
+                      n=n, n_pad=n_pad, num_chunks=B, overflow=overflow)
 
 
 def chunk_operands(labels, cluster_w, c_idx, v0: int, vweights, R: int):
@@ -110,13 +196,24 @@ def chunk_operands(labels, cluster_w, c_idx, v0: int, vweights, R: int):
     return nlab, ncw, labels[rows], vweights[rows]
 
 
+def overflow_operands(labels, cluster_w, ov):
+    """The kernel's overflow operands of one chunk, ``(rows, ptr, nlab,
+    nw, ncw)``, from its device ``Overflow``: the overflow arcs' labels
+    and cluster weights gathered, in O(overflow)."""
+    rows, ptr, o_idx, o_w = ov
+    nlab = labels[o_idx.long()]
+    return rows, ptr, nlab, o_w, cluster_w[nlab.long()]
+
+
 def _chunk_step(labels, cluster_w, c_idx, c_w, v0: int, salt: int,
-                vweights, W: int, R: int):
+                vweights, W: int, R: int, ov=None):
     """Gather ELL operands, run the kernel, apply the chunk's moves."""
     num = labels.shape[0]
     nlab, ncw, own, vwr = chunk_operands(labels, cluster_w, c_idx, v0,
                                          vweights, R)
-    moved, tgt = lp_move_chunk(nlab, c_w, ncw, own, vwr, W, v0, salt, num)
+    over = None if ov is None else overflow_operands(labels, cluster_w, ov)
+    moved, tgt = lp_move_chunk(nlab, c_w, ncw, own, vwr, W, v0, salt, num,
+                               overflow=over)
     mrow = moved != 0
     # rows past the label table are JAX's dropped scatter writes
     cnt = min(R, num - v0)
@@ -128,17 +225,20 @@ def _chunk_step(labels, cluster_w, c_idx, c_w, v0: int, salt: int,
 
 
 def cluster_iteration_fused(labels, cluster_w, chunks_idx, chunks_w, v0s,
-                            vweights, max_cluster_weight, seed, *, n):
+                            vweights, max_cluster_weight, seed, *, n,
+                            overflow=None):
     """Fused twin of ``core.lp.cluster_iteration``: same salt stream,
     bit-identical (labels, cluster_w) trajectory. Updates ``labels`` and
     ``cluster_w`` in place (the JAX version returns new arrays) and
-    returns them. ``v0s`` is a host sequence of chunk start rows."""
+    returns them. ``v0s`` is a host sequence of chunk start rows;
+    ``overflow``, when given, one entry a chunk: None or its ``Overflow``
+    as tensors on the tables' device."""
     B, R, _ = chunks_idx.shape
     W = int(max_cluster_weight)
     for b, salt in enumerate(lp.chunk_salts(B, seed, 0x85EBCA6B)):
         labels, cluster_w = _chunk_step(
             labels, cluster_w, chunks_idx[b], chunks_w[b], int(v0s[b]),
-            salt, vweights, W, R)
+            salt, vweights, W, R, None if overflow is None else overflow[b])
     return labels, cluster_w
 
 

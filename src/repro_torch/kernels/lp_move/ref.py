@@ -8,12 +8,20 @@ kernel's R x R pairwise masks. The wrapper runs it for CPU tensors, the
 tests hold it bit-identical to the JAX package's ``lp_move_chunk_ref``,
 and the chip check holds the kernel to it. Nothing on the CUDA path
 calls it.
+
+It takes the kernel's split form: a chunk's heavy rows have arcs beyond
+the slab's D lanes (``overflow``), and their phase A runs over the
+distinct labels of the whole row (``heavy_targets_ref``), as the kernel's
+heavy-row path does. The tie chain is a total order over distinct labels
+and a label's connectivity is an int32 sum, exact in any order, so the
+split gives what the whole row gives.
 """
 from __future__ import annotations
 
 import torch
 
-from ...core.lp import I32_MAX, cumsum32, hash32, segment_sum
+from ...core.lp import (I32_MAX, _argmax_target, cumsum32, hash32,
+                        segment_min, segment_sum)
 
 def ell_conn(nlab: torch.Tensor, nw: torch.Tensor) -> torch.Tensor:
     """``conn[r, j] = sum_i nw[r, i] * [nlab[r, i] == nlab[r, j]]`` (int32):
@@ -46,10 +54,66 @@ def tie_chain(score, weight_key, nlab, salt):
     return best[:, 0], light[:, 0], tgt
 
 
+def heavy_arcs(rows, ptr, slab, extra):
+    """The arcs of heavy rows as flat (H-row index, values...) lists:
+    each heavy row's D slab lanes of every (R, D) table in ``slab``
+    followed by its overflow arcs (``ptr`` CSR offsets into each (M_ov,)
+    array of ``extra``), lanes with a negative first value dropped."""
+    H, D = rows.shape[0], slab[0].shape[1]
+    dev = slab[0].device
+    hid = torch.cat([
+        torch.arange(H, device=dev).repeat_interleave(D),
+        torch.arange(H, device=dev).repeat_interleave(
+            (ptr[1:] - ptr[:-1]).long())])
+    vals = [torch.cat([s[rows.long()].reshape(-1), e])
+            for s, e in zip(slab, extra)]
+    keep = vals[0] >= 0
+    return hid[keep], [v[keep] for v in vals]
+
+
+def label_groups(hid, lab, w):
+    """Distinct (row, label) groups of flat arcs: ``(g_row, g_lab, gid,
+    conn)``, ``gid`` each arc's group and ``conn`` each group's int32
+    weight sum."""
+    key = (hid.to(torch.int64) << 32) | lab.to(torch.int64)
+    uniq, gid = torch.unique(key, return_inverse=True)
+    conn = segment_sum(w, gid, uniq.shape[0])
+    return (uniq >> 32), (uniq & 0xFFFFFFFF).to(torch.int32), gid, conn
+
+
+def heavy_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
+                      overflow):
+    """Phase A of the heavy rows over their whole rows: ``(rows, mv, tgt,
+    light)``. ``overflow`` is ``(rows, ptr, nlab, nw, ncw)``, the kernel's
+    overflow operands; the lanes of one label carry one cluster weight
+    (``chunk_operands`` gathers it by label), whose minimum is taken."""
+    rows, ptr, o_lab, o_w, o_cw = overflow
+    H = rows.shape[0]
+    hid, (lab, w, cw) = heavy_arcs(rows, ptr, (nlab, nw, ncw),
+                                   (o_lab, o_w, o_cw))
+    g_row, g_lab, gid, conn = label_groups(hid, lab, w)
+    g_cw = segment_min(cw, gid, conn.shape[0])
+    r_own, r_vw = own[rows.long()], vw[rows.long()]
+    stay = g_lab == r_own[g_row]
+    fits = ((g_cw + r_vw[g_row]) <= W) | stay
+    score = torch.where(fits, conn, -1)
+    best, tgt = _argmax_target(g_row, g_lab, score, g_cw, salt, H - 1)
+    light = segment_min(torch.where(score == best[g_row], g_cw, I32_MAX),
+                        g_row, H)
+    own_conn = segment_sum(torch.where(stay, conn, 0), g_row, H)
+    mv = (best > own_conn) & (tgt != r_own) & (tgt < I32_MAX) & (best > 0)
+    return rows.long(), mv, torch.where(mv, tgt, r_own), light
+
+
 def move_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
-                     nbud=None):
+                     nbud=None, overflow=None):
     """Phase A per row: ``(mv, tgt, light)``, whether the row moves, its
-    target (``own`` if it stays) and the weight key of its best lanes."""
+    target (``own`` if it stays) and the weight key of its best lanes.
+    ``overflow`` (host admission form only): the heavy rows' arcs beyond
+    the slab, see ``heavy_targets_ref``."""
+    if overflow is not None and nbud is not None:
+        raise ValueError("lp_move: overflow rows take the host admission "
+                         "form only (nbud is None)")
     validn = nlab >= 0
     staying = nlab == own[:, None]
     if nbud is None:
@@ -61,7 +125,12 @@ def move_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
     best, light, tgt = tie_chain(score, ncw, nlab, salt)
     own_conn = torch.where(staying & validn, nw, 0).sum(1).to(torch.int32)
     mv = (best > own_conn) & (tgt != own) & (tgt < I32_MAX) & (best > 0)
-    return mv, torch.where(mv, tgt, own), light
+    tgt = torch.where(mv, tgt, own)
+    if overflow is not None and overflow[0].shape[0]:
+        rows, mv_h, tgt_h, light_h = heavy_targets_ref(
+            nlab, nw, ncw, own, vw, W, salt, overflow)
+        mv[rows], tgt[rows], light[rows] = mv_h, tgt_h, light_h
+    return mv, tgt, light
 
 
 def candidates_ref(mv, tgt, own, vw, light, W: int, num_labels: int):
@@ -77,15 +146,17 @@ def candidates_ref(mv, tgt, own, vw, light, W: int, num_labels: int):
 
 
 def lp_move_chunk_ref(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
-                      num_labels: int, nbud=None):
+                      num_labels: int, nbud=None, overflow=None):
     """``(moved, tgt)`` (R,) int32 for one ELL chunk.
 
     nlab/nw/ncw[/nbud] are (R, D) int32 (label -1, weight 0 on padding),
     own/vw (R,) int32; ``nbud is None`` selects the host admission form
     ``ncw + vw <= W``, else the distributed ``ncw <= nbud - vw``. Labels
-    lie in [0, num_labels)."""
+    lie in [0, num_labels). ``overflow``: ``(rows, ptr, nlab, nw, ncw)``
+    of the chunk's heavy rows (``ops.overflow_operands``), or None."""
     R, _ = nlab.shape
-    mv, tgt, light = move_targets_ref(nlab, nw, ncw, own, vw, W, salt, nbud)
+    mv, tgt, light = move_targets_ref(nlab, nw, ncw, own, vw, W, salt, nbud,
+                                      overflow)
     cand, new_cw = candidates_ref(mv, tgt, own, vw, light, W, num_labels)
     t_i = tgt.long()
     cvw = torch.where(cand, vw, 0)

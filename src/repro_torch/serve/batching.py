@@ -200,6 +200,7 @@ def _stacked_fused(rows, num_chunks: int, num_iterations: int, dev):
     stacked ``lp_move`` call a chunk step."""
     from ..core import lp
     from ..core.coarsening import cluster_seed
+    from ..kernels import dispatch
     from ..kernels.lp_move import ops as move_ops
     from ..kernels.lp_move.lp_move import check_stack_limits
 
@@ -210,14 +211,9 @@ def _stacked_fused(rows, num_chunks: int, num_iterations: int, dev):
     D = max(ch.idx.shape[2] for ch in chunks)
     S, B = len(rows), num_chunks
     check_stack_limits(S, R, N, D)
-    need = move_ops.stacked_bytes(S, B, R, D, N)
-    if dev.type == "cuda":
-        free = torch.cuda.mem_get_info(dev)[0]
-        if need > free:
-            raise RuntimeError(
-                f"stacked level-0 clustering: {S} requests' slabs need "
-                f"{need} bytes (B={B}, R={R}, D={D}); the card has {free} "
-                "free")
+    dispatch.check_ell_bytes(
+        f"stacked level-0 clustering of {S} requests", (B, S, R, D), 0,
+        move_ops.stacked_bytes(S, B, R, D, N), dev)
     # the group's slabs on the device, each request's copied into its
     # corner; the padding (-1 lanes, weight 0) is inert
     idx_t = torch.full((B, S, R, D), -1, dtype=torch.int32, device=dev)
@@ -261,8 +257,11 @@ def stacked_level0_labels(graphs: Sequence[Graph], plans: Sequence[Dict], *,
     padded slabs stack. ``kernel`` ("auto" | "fused" | "composed")
     resolves against ``device`` (the card by default) as ``cluster``'s
     does: "fused" runs the ``lp_move`` kernel's request axis on the card
-    and its plain version on the CPU."""
-    from ..core.coarsening import cluster_finish, cluster_prepare
+    and its plain version on the CPU. The stacked call takes no overflow:
+    a request whose ELL chunks have heavy rows runs its iterations solo
+    (``coarsening.cluster_labels``), on the same kernels."""
+    from ..core.coarsening import (cluster_finish, cluster_labels,
+                                   cluster_prepare)
     from ..kernels import dispatch
 
     dev = dispatch.resolve_device(device)
@@ -270,14 +269,21 @@ def stacked_level0_labels(graphs: Sequence[Graph], plans: Sequence[Dict], *,
     prepped = []
     for g, plan in zip(graphs, plans):
         perm, g2, chunks = cluster_prepare(g, plan["num_chunks"],
-                                           plan["seed"], kernel=mode)
+                                           plan["seed"], kernel=mode,
+                                           device=dev)
         prepped.append((plan, perm, g2, chunks))
+    out: List[Optional[np.ndarray]] = [None] * len(prepped)
     groups: Dict[tuple, List[int]] = {}
-    for i, (plan, _, _, chunks) in enumerate(prepped):
+    for i, (plan, perm, g2, chunks) in enumerate(prepped):
+        if mode == "fused" and chunks.has_overflow:
+            W = max(1, plan["W"])
+            labels = cluster_labels(g2, chunks, W, plan["num_iterations"],
+                                    plan["seed"], dev)
+            out[i] = cluster_finish(labels.cpu().numpy(), g2, perm, W)
+            continue
         sig = (chunks.num_chunks, plan["num_iterations"])
         groups.setdefault(sig, []).append(i)
     run = _stacked_fused if mode == "fused" else _stacked_composed
-    out: List[Optional[np.ndarray]] = [None] * len(prepped)
     for (num_chunks, num_iterations), idxs in groups.items():
         labels = run([prepped[i] for i in idxs], num_chunks, num_iterations,
                      dev).cpu().numpy()

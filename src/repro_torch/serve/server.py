@@ -12,7 +12,7 @@ worker (``serve.scheduler``, reusing the ``auto`` policy's
 and supervision — a failed or timed-out attempt is retried once on
 another worker, then surfaced as a structured :class:`ServeResult`
 error. Multi-device meshes (``devices_per_mesh > 1``) wait for the
-distributed engine (ROADMAP.md, queue 1 item 5) and raise.
+distributed engine (``dist/``, not ported yet) and raise.
 
 Results are bit-identical to solo ``Partitioner.run`` for the same
 request: workers run the unmodified facade, and every request is a pure
@@ -349,7 +349,7 @@ class PartitionServer:
     devices_per_mesh:
         PE count of every worker; only 1 is ported (more raises
         ``NotImplementedError``: multi-device meshes wait for the
-        distributed engine, ROADMAP.md queue 1 item 5).
+        distributed engine, ``dist/``, not ported yet).
     backend:
         Optional registry name replacing each request's ``"auto"``.
     max_queue:
@@ -420,8 +420,7 @@ class PartitionServer:
             raise NotImplementedError(
                 f"PartitionServer(devices_per_mesh={devices_per_mesh}): "
                 "multi-device meshes need the distributed engine, which "
-                "is not ported to repro_torch yet (ROADMAP.md, queue 1 "
-                "item 5)")
+                "is not ported to repro_torch yet (dist/)")
         self.devices_per_mesh = devices_per_mesh
         self.device = resolve_device(device)
         self._backend = backend

@@ -142,6 +142,10 @@ def test_fused_cluster_iteration_matches_composed_reference(family, seed, W):
     chunks, n_pad, labels, vw = _cluster_state(g)
     mc = move_ops.build_move_chunks(h, 4)
     assert mc.n_pad == n_pad and mc.shape[2] % move_ops.LANE == 0
+    # ba's hubs outgrow the capped slab: their further arcs overflow
+    assert mc.has_overflow == (family == "ba")
+    ov = [None if o is None else tuple(t(x) for x in o)
+          for o in mc.overflow]
     jl, jc = jnp.asarray(labels), jnp.asarray(vw)
     tl, tc = t(labels), t(vw.copy())
     for it in range(2):
@@ -150,7 +154,8 @@ def test_fused_cluster_iteration_matches_composed_reference(family, seed, W):
             jnp.asarray(chunks.w), jnp.asarray(vw), jnp.int32(W),
             jnp.uint32(it + 7), n=n_pad)
         tl, tc = move_ops.cluster_iteration_fused(
-            tl, tc, t(mc.idx), t(mc.w), mc.v0, t(vw), W, it + 7, n=n_pad)
+            tl, tc, t(mc.idx), t(mc.w), mc.v0, t(vw), W, it + 7, n=n_pad,
+            overflow=ov)
         np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 

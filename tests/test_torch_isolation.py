@@ -167,3 +167,31 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
                          timeout=300)
     _assert_no_result(out)
     assert "sources are not under" in out.stderr
+
+
+def test_modules_walked_include_the_fabric():
+    mods = _modules()
+    for m in ("repro_torch.fabric", "repro_torch.fabric.protocol",
+              "repro_torch.fabric.registry", "repro_torch.fabric.autoscaler",
+              "repro_torch.fabric.worker", "repro_torch.fabric.client",
+              "repro_torch.fabric.frontdoor", "repro_torch.api.runtime",
+              "repro_torch.launch.fabric"):
+        assert m in mods
+
+
+def test_fabric_worker_cli_refuses_without_cuda_and_dist():
+    """The worker CLI runs on the card by default: without one it exits
+    2 and prints no ready line; so does a multi-process or multi-device
+    request, which needs the distributed engine."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.fabric", "worker"]
+    for extra, text in (([], "no CUDA device"),
+                        (["--device", "cpu", "--devices-per-mesh", "2"],
+                         "(dist/)"),
+                        (["--device", "cpu", "--coordinator", "h:1",
+                          "--num-processes", "2", "--process-id", "0"],
+                         "(dist/)")):
+        out = subprocess.run(cmd + extra, cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 2 and out.stdout == ""
+        assert text in out.stderr

@@ -433,7 +433,8 @@ def test_fused_round_scores_match_the_composed_gains():
     bw = np.bincount(labels[:g.n], weights=vw[:g.n], minlength=k)
     lm = np.full(k, int(bw.mean() * 1.05), dtype=np.int32)
     par = np.array([0, 0, 1, 1, 2, 2, 3, 3], dtype=np.int32)
-    idx, ew = bal_ops.build_balance_ell(g, n_pad)
+    idx, ew, ov = bal_ops.build_balance_ell(g, n_pad)
+    assert ov is None                           # max degree 32: no hub
     src, dst, w = (t32(x[0]) for x in (chunks.src, chunks.dst, chunks.w))
     lab_t, vw_t, bw_t, lm_t, par_t = (t32(x) for x in (labels, vw, bw, lm,
                                                        par))

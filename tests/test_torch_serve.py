@@ -421,7 +421,8 @@ def test_server_rejects_bad_construction(kw):
 
 
 def test_multi_device_meshes_raise_naming_the_distributed_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match=r"distributed engine.*\(dist/\)"):
         server(meshes=2, devices_per_mesh=2)
 
 
@@ -671,7 +672,7 @@ def test_serve_cli_refuses_without_cuda_and_multi_device_meshes():
     out = _serve_cli("repro_torch.launch.serve", "--device", "cpu",
                      "--devices-per-mesh", "2")
     assert out.returncode == 2 and out.stdout == ""
-    assert "queue 1 item 5" in out.stderr
+    assert "(dist/)" in out.stderr
 
 
 # ---------------------------------------------------------------------------
