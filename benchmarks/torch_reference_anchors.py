@@ -4,7 +4,7 @@ port's answers to the same requests beside them.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src \\
         python3 benchmarks/torch_reference_anchors.py \\
-        [--n 1048576] [--side ref|port|both] [--out FILE]
+        [--n 1048576] [--side ref|port|both] [--dist] [--out FILE]
 
 The request is ``chip_smoke.py``'s slice at full size: rgg2d (seed 17),
 k=16, eps=0.03, preset ``fast``, ``refine="unconstrained"``, backend
@@ -17,10 +17,20 @@ unless their assignments, cuts and traces (wall times apart) agree. It
 prints one JSON object per side: each run's cut, feasibility, wall
 seconds and trace (``refine-mode`` records included), the constants that
 ``chip_smoke.py`` holds the port to; ``--out`` also writes them there.
+
+``--dist`` asks instead for the distributed engine at P=1 (backend
+``dist``, ``devices=1``, preset ``fast``) in both memory models: the
+default (host contraction, host balance, replicated tables) and
+``contraction="sharded"``, ``balance="dist"``, ``weights="owner"``. Each
+run also gives the sha256 of its int64 assignment. The reference's
+``dist`` modules need the test suite's ``shard_map`` shim on this jax
+(``tests/torch_dist_jobs.py::install_reference_shim``); the port runs in
+a one-rank NCCL group on the card.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -30,6 +40,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 BASELINES = ("plain_mgp", "single_level_lp")
+DIST_MODELS = {"default": {},
+               "sharded": {"contraction": "sharded", "balance": "dist",
+                           "weights": "owner"}}
+
+
+def digest(assignment) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        assignment, dtype=np.int64).tobytes()).hexdigest()
 
 
 def strip(trace):
@@ -57,21 +75,47 @@ def run_side(api, graph, kernel, device=None):
     return out, assignments
 
 
+def run_dist(api, graph, kernel, device=None):
+    """The distributed engine at P=1 in both memory models."""
+    kw = {} if device is None else {"device": device}
+    engine = api.Partitioner(**kw)
+    out, assignments = {}, {}
+    for name, model in DIST_MODELS.items():
+        req = api.PartitionRequest(graph=graph, k=16, epsilon=0.03,
+                                   preset="fast", backend="dist", devices=1,
+                                   kernel=kernel, **model)
+        t0 = time.perf_counter()
+        res = engine.run(req)
+        out[name] = {"cut": res.cut, "feasible": res.feasible,
+                     "wall_s": time.perf_counter() - t0,
+                     "sha256": digest(res.assignment),
+                     "trace": list(res.trace)}
+        assignments[name] = res.assignment
+    return out, assignments
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--side", default="both", choices=["ref", "port", "both"])
+    ap.add_argument("--dist", action="store_true",
+                    help="the distributed engine at P=1, both memory models")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
-    result = {"n": args.n}
+    run = run_dist if args.dist else run_side
+    result = {"n": args.n, "dist": args.dist}
     runs = {}
     if args.side in ("ref", "both"):
+        if args.dist:
+            sys.path.insert(0, str(ROOT / "tests"))
+            from torch_dist_jobs import install_reference_shim
+            install_reference_shim(devices=1)
         from repro import api as ref_api
         from repro.graphs import generators as ref_generators
 
         g = ref_generators.make("rgg2d", args.n, 8.0, seed=17)
-        result["ref"], runs["ref"] = run_side(ref_api, g, "composed")
+        result["ref"], runs["ref"] = run(ref_api, g, "composed")
         print(json.dumps({"ref": result["ref"]}), flush=True)
     if args.side in ("port", "both"):
         import torch
@@ -82,8 +126,7 @@ def main() -> int:
             print("torch_reference_anchors: no CUDA device", file=sys.stderr)
             return 2
         g = api.GraphSpec("rgg2d", args.n, 8.0, seed=17).materialize()
-        result["port"], runs["port"] = run_side(api, g, "fused",
-                                                device="cuda")
+        result["port"], runs["port"] = run(api, g, "fused", device="cuda")
         result["device"] = torch.cuda.get_device_name(0)
         print(json.dumps({"port": result["port"],
                           "device": result["device"]}), flush=True)
@@ -93,10 +136,10 @@ def main() -> int:
     if len(runs) == 2:
         bad = [name for name in runs["ref"]
                if not np.array_equal(runs["ref"][name], runs["port"][name])]
-        ref_u, port_u = result["ref"]["unconstrained"], \
-            result["port"]["unconstrained"]
-        if strip(ref_u["trace"]) != strip(port_u["trace"]):
-            bad.append("unconstrained trace")
+        for name, ref_r in result["ref"].items():
+            if "trace" in ref_r and strip(ref_r["trace"]) != \
+                    strip(result["port"][name]["trace"]):
+                bad.append(f"{name} trace")
         print(json.dumps({"agree": not bad, "differ": bad}))
         return 1 if bad else 0
     return 0

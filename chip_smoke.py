@@ -37,7 +37,11 @@ exits non-zero if any one fails:
      overflow: the kernels' heavy-row paths), among them a row of
      30,000 arcs, a label (block) held in both the slab and the
      overflow, a heavy row with no admissible target and one label over
-     30,000 arcs;
+     30,000 arcs; and the distributed engine's forms: lp_move's heavy
+     rows in the distributed admission form (the labels' budgets in the
+     slab and the overflow) and bal_scores on a PE's label table (lanes
+     into [locals, ghosts, sentinel], the ghost rows empty, validity a
+     prefix of the rows), with and without heavy rows;
   3. the anchor: rgg2d n=4000, k=16, eps=0.03 with the benchmark config
      (C=256, 4 chunks, 2 IP repetitions) must give cut 819, feasible,
      under ``kernel="fused"`` and ``kernel="composed"``;
@@ -143,7 +147,7 @@ exits non-zero if any one fails:
      every result ok in one attempt and equal to its solo run, both
      workers serving, each exiting 0 after SIGTERM; its wall beside 8b's
      and each worker process's CPU seconds;
-  9. hub graphs: ``Partitioner().run`` of ba at n=2^20 and rhg at 2^18
+  9. hub graphs: ``Partitioner().run`` of ba at n=2^19 and rhg at 2^17
      (both at 2^20 with ``--hubs-only``, which runs phases 1 and 9 only
      and prints no contract line; seed 17, k=16, preset fast) at
      ``kernel="auto"`` (fused, hub rows through the heavy-row paths) and
@@ -154,7 +158,27 @@ exits non-zero if any one fails:
      overflow bytes beside the CSR's (held to the ``slab_width`` rule's
      bound); the lp_move and bal_scores calls with the most heavy-row
      lanes held to their plain versions (exact) and timed beside their
-     bounds (rows ``lp_move_heavy`` and ``bal_scores_heavy``).
+     bounds (rows ``lp_move_heavy`` and ``bal_scores_heavy``);
+ 10. the distributed engine at P=1: ``Partitioner(backend="dist")`` with
+     ``devices=1`` in a one-rank NCCL group, on phase 4's graph (rgg2d
+     2^20, k=16, eps=0.03, preset fast) in both memory models (the
+     default, and ``contraction="sharded"``, ``balance="dist"``,
+     ``weights="owner"``), each with ``kernel="fused"`` and
+     ``kernel="composed"``: the two bit-identical, and both equal to the
+     JAX reference's answer on the CPU at the same request (cut, trace
+     and the sha256 of the assignment, from ``benchmarks/
+     torch_reference_anchors.py --dist``); each run's wall, per-phase
+     trace seconds, launch counts (the distributed forms ``lp_move_dist``
+     and ``bal_scores_dist`` apart), collective count and peak device
+     memory printed; the fused runs must launch lp_move's distributed
+     form, greedy_pick, seg_merge (sharded model) and bal_scores' table
+     form (dist balancer), the composed runs nothing. Then ba at 2^18
+     (seed 17) in the sharded model, fused against composed,
+     bit-identical, with lp_move's heavy rows launched in the distributed
+     form. The largest distributed-form call of each kernel is held to
+     its plain version (exact) and timed beside its bound (rows
+     ``lp_move_dist``, ``bal_scores_dist``, ``lp_move_heavy_dist`` and,
+     if the hub run launched it, ``bal_scores_heavy_dist``).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -244,12 +268,69 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                       "src/repro/kernels/lp_move/lp_move.py:197"),
     "bal_scores_heavy": ("src/repro_torch/csrc/bal_round.cu",
                          "src/repro/kernels/bal_round/bal_round.py:120"),
+    # the distributed engine's forms: lp_move's admission by the labels'
+    # budgets (ncw <= nbud - vw, the reference's dist_lp.py:263-292) and
+    # bal_scores over a PE's [locals, ghosts, sentinel] label table
+    # (dist_balance.py:110-114)
+    "lp_move_dist": ("src/repro_torch/csrc/lp_move.cu",
+                     "src/repro/kernels/lp_move/lp_move.py:197"),
+    "lp_move_heavy_dist": ("src/repro_torch/csrc/lp_move.cu",
+                           "src/repro/kernels/lp_move/lp_move.py:197"),
+    "bal_scores_dist": ("src/repro_torch/csrc/bal_round.cu",
+                        "src/repro/kernels/bal_round/bal_round.py:120"),
+    "bal_scores_heavy_dist": ("src/repro_torch/csrc/bal_round.cu",
+                              "src/repro/kernels/bal_round/bal_round.py:120"),
 }
-# phase 9: the hub graphs (seed 17) and their sizes; rhg runs at 2^18 to
-# keep the script within its time, both at 2^20 with --hubs-only
-HUB_SIZES = {"ba": 1 << 20, "rhg": 1 << 18}
+# phase 9: the hub graphs (seed 17) and their sizes; cut to 2^19 and 2^17
+# to keep the whole script within half its time limit (phase 10 came
+# after it), both at 2^20 with --hubs-only
+HUB_SIZES = {"ba": 1 << 19, "rhg": 1 << 17}
 HUB_SIZES_FULL = {"ba": 1 << 20, "rhg": 1 << 20}
 MAIN_PATH = ("lp_move", "seg_merge", "bal_scores", "greedy_pick")
+# phase 10: the distributed engine's memory models, and the JAX
+# reference's answers at P=1 on phase 4's request (CPU, kernel="composed",
+# benchmarks/torch_reference_anchors.py --dist): cut, the sha256 of the
+# int64 assignment and the trace as (phase, level, n, m, coarse_n or
+# blocks, W or cut, payload_bytes or balance_rounds). The reference took
+# 51.4 and 53.3 s on the card machine's CPU, beside a run of phase 10
+DIST_MODELS = {"default": {},
+               "sharded": {"contraction": "sharded", "balance": "dist",
+                           "weights": "owner"}}
+DIST_ANCHORS = {
+    "default": (5917, "e940c3dac7cfa3ed4f3a514af84b5675"
+                "2196f02c6b8426dcb0982bc2e81a36db", (
+        ("dist-coarsen", 0, 1048576, 8378246, 122695, 1966, None),
+        ("dist-coarsen", 1, 122695, 498842, 34314, 1966, None),
+        ("dist-coarsen", 2, 34314, 156360, 11890, 1966, None),
+        ("dist-coarsen", 3, 11890, 57646, 5766, 6291, None),
+        ("dist-coarsen", 4, 5766, 26680, 3816, 15728, None),
+        ("initial", None, 3816, 15810, 2, 1616, None),
+        ("final", None, 3816, 15810, 16, 6657, None),
+        ("dist-uncoarsen", 0, 5766, 26680, 16, 6578, 1),
+        ("dist-uncoarsen", 1, 11890, 57646, 16, 6317, 0),
+        ("dist-uncoarsen", 2, 34314, 156360, 16, 6164, 0),
+        ("dist-uncoarsen", 3, 122695, 498842, 16, 6046, 0),
+        ("dist-uncoarsen", 4, 1048576, 8378246, 16, 5917, 0),
+    )),
+    "sharded": (5917, "e940c3dac7cfa3ed4f3a514af84b5675"
+                "2196f02c6b8426dcb0982bc2e81a36db", (
+        ("dist-coarsen", 0, 1048576, 8378246, 122695, 1966, 5986104),
+        ("dist-coarsen", 1, 122695, 498842, 34314, 1966, 1876320),
+        ("dist-coarsen", 2, 34314, 156360, 11890, 1966, 691752),
+        ("dist-coarsen", 3, 11890, 57646, 5766, 6291, 320160),
+        ("dist-coarsen", 4, 5766, 26680, 3816, 15728, 189720),
+        ("initial", None, 3816, 15810, 2, 1616, None),
+        ("final", None, 3816, 15810, 16, 6657, None),
+        ("dist-uncoarsen", 0, 5766, 26680, 16, 6578, 1),
+        ("dist-uncoarsen", 1, 11890, 57646, 16, 6317, 0),
+        ("dist-uncoarsen", 2, 34314, 156360, 16, 6164, 0),
+        ("dist-uncoarsen", 3, 122695, 498842, 16, 6046, 0),
+        ("dist-uncoarsen", 4, 1048576, 8378246, 16, 5917, 0),
+    )),
+}
+DIST_HUB = ("ba", 1 << 18)
+DIST_FORMS = ("lp_move_dist", "lp_move_heavy_dist", "seg_merge",
+              "bal_scores_dist", "bal_scores_heavy_dist", "greedy_pick")
 # (rtol, atol) of a kernel against its plain version; the rest are exact
 TOLERANCE = {"bsr_spmm": (1e-5, 1e-5)}
 # measured in phase 1: cycles of one dependent shared-memory load, and the
@@ -406,8 +487,8 @@ def ragged_cases(torch, rng, dev):
         cases.append(("greedy_pick", bal_round.greedy_pick,
                       bal_ref.greedy_pick_ref, args, {},
                       *([what] if what else [])))
-    return cases + hub_cases(torch, rng, dev) + micro_ragged_cases(
-        torch, rng, dev)
+    return cases + hub_cases(torch, rng, dev) + dist_cases(
+        torch, rng, dev) + micro_ragged_cases(torch, rng, dev)
 
 
 # chunks with heavy rows (more arcs than the slab's D = 32 lanes, the rest
@@ -513,6 +594,80 @@ def hub_cases(torch, rng, dev):
                       bal_ref.bal_scores_ell_ref,
                       (*t[:6], fb, n, int(rng.integers(0, 2**32))), kw,
                       what))
+    return cases
+
+
+# the distributed engine's bal_scores tables: (local rows, ghost rows,
+# hubs, K, what); the ELL has a row for every table entry, lanes into any
+# of them, the ghost rows empty
+DIST_TABLES = ((3000, 700, {5: 20000, 9: 200}, 16, "hub rows"),
+               (1000, 1, {3: 40}, 8, "P=1: one ghost slot"),
+               (257, 4000, {0: 33}, 64, "more ghosts than local rows"))
+
+
+def dist_cases(torch, rng, dev):
+    """The distributed engine's kernel forms against their plain
+    versions: lp_move's heavy rows admitted by the labels' budgets, and
+    bal_scores on a PE's label table."""
+    from repro_torch.kernels.bal_round import bal_round, ops as bal_ops
+    from repro_torch.kernels.bal_round import ref as bal_ref
+    from repro_torch.kernels.lp_move import lp_move, ref as lp_ref
+
+    cases = []
+    for R, hubs, nl, what in HUB_CASES:
+        W = 40
+        idx, ew, ov = hub_graph(rng, R, hubs, 4 * R)
+        lab = rng.integers(0, nl, 4 * R)
+        cw = rng.integers(0, 2 * W, nl + 1)
+        bud = rng.integers(W // 2, 2 * W, nl + 1)
+        bud[nl] = -2**30                  # the sentinel label never fits
+        own = rng.integers(0, nl, R)
+        if what == "no target":
+            bud[lab[idx[0]]] = -2**30
+            bud[lab[ov.idx[:ov.ptr[1]]]] = -2**30
+            own[0] = nl
+        valid = idx >= 0
+        nlab = np.where(valid, lab[np.maximum(idx, 0)], -1)
+        safe = np.maximum(nlab, 0)
+        ncw = np.where(valid, cw[safe], 2**31 - 1)
+        nbud = np.where(valid, bud[safe], 0)
+        o_lab = lab[ov.idx]
+        args = [_i32(torch, x, dev) for x in (nlab, ew, ncw, own,
+                                              rng.integers(1, 4, R))]
+        over = tuple(_i32(torch, x, dev) for x in (
+            ov.rows, ov.ptr, o_lab, ov.w, cw[o_lab], bud[o_lab]))
+        cases.append(("lp_move", lp_move.lp_move_chunk,
+                      lp_ref.lp_move_chunk_ref,
+                      (*args, W, int(rng.integers(0, 1000)),
+                       int(rng.integers(0, 2**32)), nl + 1),
+                      dict(nbud=_i32(torch, nbud, dev), overflow=over),
+                      f"nbud, {what}"))
+    for n_loc, n_ghost, hubs, K, what in DIST_TABLES:
+        rows = n_loc + n_ghost + 1
+        idx, ew, ov = hub_graph(rng, n_loc, hubs, rows)
+        idx = np.concatenate([idx, np.full((rows - n_loc, 32), -1,
+                                           np.int32)])
+        ew = np.concatenate([ew, np.zeros((rows - n_loc, 32), np.int32)])
+        n_valid = n_loc - n_loc // 8          # the padded local rows last
+        tab = rng.integers(0, K, rows)
+        tab[rng.random(rows) < 0.3] = 0
+        tab[n_valid:n_loc + 1] = K            # padding and the sentinel
+        vw = np.zeros(rows, np.int64)
+        vw[:n_valid] = rng.integers(1, 7, n_valid)
+        bw = np.full(K + 1, 2**31 - 1)
+        bw[:K] = np.bincount(tab[:n_valid], weights=vw[:n_valid],
+                             minlength=K + 1)[:K]
+        lm = np.full(K + 1, 2**31 - 1)
+        lm[:K] = bw[:K].sum() / K * rng.uniform(0.9, 1.3, K)
+        t = [_i32(torch, x, dev) for x in (idx, ew, tab, vw, bw, lm)]
+        fb = bal_ops.fallback_table(t[4], None, False)
+        cases.append(("bal_scores", bal_round.bal_scores,
+                      bal_ref.bal_scores_ell_ref,
+                      (*t, fb, n_valid, int(rng.integers(0, 2**32))),
+                      dict(overflow=tuple(_i32(torch, x, dev) for x in ov),
+                           dist=True),
+                      f"dist table ({n_loc} local rows, {n_ghost} ghost "
+                      f"slots): {what}"))
     return cases
 
 
@@ -937,25 +1092,31 @@ class Capture:
         each call. ``size(args, kw)`` ranks the calls (default: the first
         argument's elements); a call it gives None is not kept."""
         fn = getattr(module, attr)
+        # the kept call is of the unwrapped function (an attribute may be
+        # wrapped twice), so that timing it copies nothing
+        root = getattr(fn, "__wrapped__", fn)
 
         def wrapped(*args, **kw):
             n = args[0].numel() if size is None else size(args, kw)
             if n is not None and n >= self.inputs.get(name, (-1,))[0]:
                 cl = (lambda x: x.clone() if isinstance(
                     x, self.torch.Tensor) else x)
-                self.inputs[name] = (n, fn, [cl(a) for a in args],
+                self.inputs[name] = (n, root, [cl(a) for a in args],
                                      {k: cl(v) for k, v in kw.items()})
             out = fn(*args, **kw)
             if after is not None:
                 after(args, kw)
             return out
 
+        wrapped.__wrapped__ = root
         setattr(module, attr, wrapped)
         self._undo.append((module, attr, fn))
 
     def restore(self):
-        for module, attr, fn in self._undo:
+        # the last wrap first: an attribute wrapped twice gets its own back
+        for module, attr, fn in reversed(self._undo):
             setattr(module, attr, fn)
+        self._undo = []
 
 
 class HostTimers:
@@ -1229,7 +1390,9 @@ def bound(kind: str, args, kw, out):
 def bound_parts(kind: str, args, kw, out):
     """(bytes moved, operations) of one call, as ``bound`` counts them. A
     stacked lp_move call counts each request's solo call: its valid
-    lanes, columns, outputs and operations, summed."""
+    lanes, columns, outputs and operations, summed. The distributed
+    forms count as their kernels do."""
+    kind = kind.replace("_dist", "")
     if kind == "lp_move_stacked":
         S = args[0].shape[0]
         pick = (lambda x, s: x[s] if hasattr(x, "shape") else x)
@@ -2692,10 +2855,178 @@ def phase_hubs(torch, api, build, sizes=HUB_SIZES):
     return rows, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the distributed engine at P=1 (a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+def dist_trace(trace):
+    """A trace as DIST_ANCHORS keeps it."""
+    return tuple((r["phase"], r.get("level"), r["n"], r["m"],
+                  r.get("coarse_n", r.get("blocks")),
+                  r.get("W", r.get("cut")),
+                  r.get("payload_bytes", r.get("balance_rounds")))
+                 for r in trace)
+
+
+def assignment_digest(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a, dtype=np.int64)
+                          .tobytes()).hexdigest()
+
+
+def dist_run(torch, api, build, pe, g, kernel, model):
+    """One ``Partitioner(backend="dist").run`` of g (k=16, fast, devices=1)
+    with the launch and collective counts zeroed just before and read
+    just after: (result, wall, peak device bytes, launches,
+    collectives)."""
+    build.reset_launches()
+    pe.collectives = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = api.Partitioner(backend="dist").run(api.PartitionRequest(
+        graph=g, k=16, epsilon=0.03, preset="fast", devices=1,
+        kernel=kernel, **model))
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            dict(build.LAUNCHES), pe.collectives)
+
+
+def dist_capture(torch):
+    """Wrap the distributed engine's kernel calls, keeping the largest
+    call of each distributed form: lp_move's budget admission and its
+    heavy rows, bal_scores on a PE's table and its heavy rows."""
+    from repro_torch.dist import dist_lp
+    from repro_torch.kernels.bal_round import ops as bal_ops
+
+    def dist_only(args, kw):
+        return args[0].numel() if kw.get("dist") else None
+
+    def heavy_dist(args, kw):
+        lanes = heavy_lanes(args, kw)
+        return lanes if lanes and (kw.get("dist") or
+                                   kw.get("nbud") is not None) else None
+
+    cap = Capture(torch)
+    cap.wrap(dist_lp, "lp_move_chunk", "lp_move_dist")
+    cap.wrap(dist_lp, "lp_move_chunk", "lp_move_heavy_dist",
+             size=heavy_dist)
+    cap.wrap(bal_ops, "bal_scores", "bal_scores_dist", size=dist_only)
+    cap.wrap(bal_ops, "bal_scores", "bal_scores_heavy_dist",
+             size=heavy_dist)
+    return cap
+
+
+def phase_dist(torch, api, build, g):
+    """Phase 10. Returns (kernel rows, launches by path)."""
+    import torch.distributed
+
+    from repro_torch.api import runtime
+    from repro_torch.dist import collectives
+    from repro_torch.kernels.bal_round.ref import bal_scores_ell_ref
+    from repro_torch.kernels.lp_move.ref import lp_move_chunk_ref
+
+    say(f"== phase 10: the distributed engine at P=1 (one-rank NCCL "
+        f"group), rgg2d {g.n}, k=16, fast, both memory models, fused "
+        "against composed and the JAX reference")
+    pe = runtime.pe_group(1, "cuda")
+    say(f"  group: backend {pe.backend}, {pe.P} rank, device {pe.device}")
+    hub = api.GraphSpec(DIST_HUB[0], DIST_HUB[1], 8.0, seed=17)
+    by_path, calls = {}, {}
+    for model, gm, kw in [(m, g, kw) for m, kw in DIST_MODELS.items()] + \
+            [("hub", hub.materialize(), DIST_MODELS["sharded"])]:
+        tag = model if model != "hub" else f"{DIST_HUB[0]} {gm.n} sharded"
+        runs = {}
+        for kernel in ("fused", "composed"):
+            cap = dist_capture(torch) if kernel == "fused" else None
+            try:
+                runs[kernel] = dist_run(torch, api, build, pe, gm, kernel,
+                                        kw)
+            finally:
+                if cap is not None:
+                    cap.restore()
+            for name, call in (cap.inputs.items() if cap else ()):
+                if call[0] > calls.get(name, ((-1,), ""))[0][0]:
+                    calls[name] = (call, tag)
+        fres, _, _, flaunch, fcoll = runs["fused"]
+        cres, _, _, claunch, _ = runs["composed"]
+        check(np.array_equal(fres.assignment, cres.assignment)
+              and fres.cut == cres.cut and fres.feasible,
+              f"dist {tag}: fused cut {fres.cut} and composed cut "
+              f"{cres.cut} or their assignments differ")
+        check(dist_trace(fres.trace) == dist_trace(cres.trace),
+              f"dist {tag}: fused and composed traces differ")
+        check(not any(claunch.values()),
+              f"dist {tag}: the composed run launched kernels: {claunch}")
+        say(f"  {tag}: cut {fres.cut}, feasible, fused and composed "
+            f"bit-identical (sha256 {assignment_digest(fres.assignment)})")
+        shown = DIST_FORMS + ("lp_move", "bal_scores")
+        for kernel, (res, wall, peak, launch, coll) in runs.items():
+            say(f"  {tag} {kernel}: wall {wall:.3f} s, peak device memory "
+                f"{peak} B, collectives {coll}, trace seconds "
+                f"{json.dumps(phase_seconds([res]))}")
+            say(f"  {tag} {kernel} launches "
+                f"{json.dumps({k: launch[k] for k in shown})}")
+        for rec in fres.trace:
+            say(f"  {tag} trace " + json.dumps(rec, sort_keys=True))
+        need = ["lp_move_dist", "greedy_pick", "seg_merge"]
+        need += ["bal_scores_dist"] if kw.get("balance") == "dist" else []
+        need += ["lp_move_heavy_dist"] if model == "hub" else []
+        check(all(flaunch[k] > 0 for k in need),
+              f"dist {tag}: a kernel of its fused path was not launched "
+              f"({need}): {flaunch}")
+        check(fcoll > 0, f"dist {tag}: no collective ran")
+        by_path[f"dist_{model}"] = flaunch
+        if kw.get("contraction") == "sharded":
+            check(any(r.get("payload_bytes") for r in fres.trace),
+                  f"dist {tag}: no exchange payload")
+        if model == "hub":
+            continue
+        got = [fres.cut, assignment_digest(fres.assignment),
+               dist_trace(fres.trace)]
+        want = DIST_ANCHORS[model]
+        check(got == list(want),
+              f"dist {tag}: cut {fres.cut}, the assignment or the trace "
+              f"differs from the reference's (cut {want[0]})")
+        say(f"  {tag}: equals the JAX reference (cut, trace, assignment "
+            "sha256)")
+    # the one-rank group ends with the phase
+    collectives.forget_world_group()
+    torch.distributed.destroy_process_group()
+    plain = {"lp_move_dist": lp_move_chunk_ref,
+             "lp_move_heavy_dist": lp_move_chunk_ref,
+             "bal_scores_dist": bal_scores_ell_ref,
+             "bal_scores_heavy_dist": bal_scores_ell_ref}
+    rows = []
+    for name in plain:
+        if name not in calls:
+            check(name == "bal_scores_heavy_dist", f"no {name} call")
+            say(f"  {name}: not launched (no balancing round met a heavy "
+                "row)")
+            continue
+        (_, fn, args, kw), where = calls[name]
+        say(f"  {name}: the largest call, of the {where} fused run")
+        rows.append(held_and_timed(torch, name, fn, plain[name], list(args),
+                                   kw, 20, sum(c[name] for c in
+                                               by_path.values())))
+    return rows, by_path
+
+
 def hubs_only(torch, api, build) -> int:
     """``--hubs-only``: phases 1 and 9, both hub graphs at 2^20."""
     smi = phase_environment(torch, build)
     rows, _ = phase_hubs(torch, api, build, HUB_SIZES_FULL)
+    say(smi)
+    say(json.dumps({"kernels": rows}))
+    return 0
+
+
+def dist_only(torch, api, build) -> int:
+    """``--dist-only``: phases 1, 2 and 10."""
+    smi = phase_environment(torch, build)
+    phase_ragged(torch, torch.device("cuda", 0))
+    g = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17).materialize()
+    rows, _ = phase_dist(torch, api, build, g)
     say(smi)
     say(json.dumps({"kernels": rows}))
     return 0
@@ -2710,6 +3041,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hubs-only", action="store_true",
                     help="only build the kernels and run phase 9, with "
                          "both hub graphs at 2^20 (no contract line)")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="only build the kernels and run phases 2 and 10 "
+                         "(no contract line)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2733,6 +3067,8 @@ def main(argv=None) -> int:
           "the port pulled in the JAX package")
     if args.hubs_only:
         return hubs_only(torch, api, build)
+    if args.dist_only:
+        return dist_only(torch, api, build)
     dev = torch.device("cuda", 0)
     # the plain versions' f32 products (bsr_spmm's einsum) in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2774,9 +3110,13 @@ def main(argv=None) -> int:
     hub_rows, hub_paths = phase_hubs(torch, api, build)
     by_path.update(hub_paths)
     kernels[2:2] = hub_rows
+    dist_rows, dist_paths = phase_dist(torch, api, build, g)
+    by_path.update(dist_paths)
+    kernels[4:4] = dist_rows
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
-                                       "bal_scores_heavy"):
+                                       "bal_scores_heavy") + tuple(
+                                           r["name"] for r in dist_rows):
             row["launches_by_path"] = {p: c[row["name"]]
                                        for p, c in by_path.items()}
     check("jax" not in sys.modules and "repro" not in sys.modules,

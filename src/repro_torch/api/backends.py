@@ -7,13 +7,22 @@ a ``BackendContext`` carrying the torch device, an optional trace list
 level-0 labels. Built-ins:
 
   * ``single``          — single-process deep MGP (``core.deep_mgp``)
+  * ``dist``            — distributed deep MGP, direct all-to-all
+  * ``dist-grid``       — distributed deep MGP, two-level grid routing
   * ``plain_mgp``       — classic multilevel baseline
   * ``single_level_lp`` — XtraPuLP-like single-level LP baseline
 
+The ``dist`` backends run SPMD, one rank a PE, under an initialised
+``torch.distributed`` group of ``req.devices`` ranks (every rank calls
+``Partitioner.run`` with the same request and gets the same result):
+``api.runtime.distributed_init`` makes it, or ``launch/partition.py
+--devices P``. A one-device request with no group makes a one-rank group
+itself (NCCL on the card, gloo on the CPU). They honor the request's
+distributed memory-model knobs (``contraction``, ``weights``,
+``balance``) through ``req.resolve_config()``.
+
 The baselines being ordinary backends is what makes ``--compare`` "run
-the same request against N backends". The ``auto`` policy is the
-reference's, so a request that it sends to ``dist`` or ``dist-grid``
-raises until the distributed engine (``dist/``) is ported.
+the same request against N backends".
 """
 from __future__ import annotations
 
@@ -40,7 +49,6 @@ _BATCHABLE: set = set()
 MIN_VERTICES_PER_DEVICE = 64
 # grid all-to-all routing pays off once the PE count is large (paper §5)
 GRID_ROUTING_MIN_DEVICES = 16
-# the reference's distributed backends, not ported yet
 DISTRIBUTED = ("dist", "dist-grid")
 
 
@@ -70,11 +78,6 @@ def is_batchable(name: str) -> bool:
 
 
 def get_backend(name: str) -> BackendFn:
-    if name in DISTRIBUTED and name not in _REGISTRY:
-        raise NotImplementedError(
-            f"backend {name!r}: the distributed engine (dist/) is not "
-            "ported to repro_torch yet; run with devices=1 or "
-            "backend='single'")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -127,6 +130,26 @@ def _single(g: Graph, req, ctx: BackendContext) -> np.ndarray:
                              trace=ctx.trace,
                              level0_labels=ctx.level0_labels,
                              device=ctx.device)
+
+
+def _dist(g: Graph, req, ctx: BackendContext,
+          use_grid: bool) -> np.ndarray:
+    from ..dist.dist_partitioner import dist_partition_impl
+    from .runtime import pe_group
+    P = max(1, ctx.devices)
+    return dist_partition_impl(g, req.k, P, cfg=req.resolve_config(),
+                               use_grid=use_grid,
+                               pe=pe_group(P, ctx.device), trace=ctx.trace)
+
+
+@register_backend("dist")
+def _dist_direct(g: Graph, req, ctx: BackendContext) -> np.ndarray:
+    return _dist(g, req, ctx, use_grid=False)
+
+
+@register_backend("dist-grid")
+def _dist_grid(g: Graph, req, ctx: BackendContext) -> np.ndarray:
+    return _dist(g, req, ctx, use_grid=True)
 
 
 @register_backend("plain_mgp", batchable=True)

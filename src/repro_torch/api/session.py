@@ -10,8 +10,9 @@ pure function of its fields.
 (``serve/batching.py::run_coalesced``): identical requests share one
 run, and with ``stack`` on distinct requests share one stacked level-0
 clustering. This port serves one device: the reference's multi-device
-sessions (a shared mesh, ``shard_ctx``) wait for the distributed engine
-(``dist/``, not ported yet) and raise ``NotImplementedError``.
+sessions (a shared mesh, ``shard_ctx``) are the next item of ROADMAP
+queue 1 and raise ``NotImplementedError``; a P-device request runs
+through the ``dist`` backend under ``api.runtime.distributed_init``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,10 @@ from .partitioner import Partitioner
 from .request import GraphSpec, PartitionRequest
 from .result import PartitionResult
 
-_NO_DIST = "the distributed engine (dist/) is not ported to repro_torch yet"
+_NO_DIST = ("multi-device sessions are not ported to repro_torch yet: they "
+            "are the next item of ROADMAP queue 1 (item 1, 'session "
+            "devices > 1'); a P-device request runs through the dist "
+            "backend under api.runtime.distributed_init")
 
 
 class BucketCache:
@@ -81,7 +85,8 @@ class PartitionSession:
     Parameters
     ----------
     devices:
-        PE count; only 1 is ported (more raises ``NotImplementedError``).
+        PE count; only 1 is ported (more raises ``NotImplementedError``,
+        naming ROADMAP queue 1).
         A request's own ``devices`` field still resolves as a solo run
         would, so one the ``auto`` policy sends to a distributed backend
         raises from its future.
@@ -124,7 +129,7 @@ class PartitionSession:
         if devices > 1 or mesh is not None:
             raise NotImplementedError(
                 f"PartitionSession(devices={devices}, mesh={mesh!r}): "
-                f"multi-device sessions need a mesh; {_NO_DIST}")
+                f"{_NO_DIST}")
         if stack not in ("auto", "on", "off"):
             raise ValueError(
                 f"stack must be 'auto', 'on' or 'off', got {stack!r}")

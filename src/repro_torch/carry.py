@@ -2,10 +2,14 @@
 
 The partitioner has no weights; what crosses over is the input: a graph
 (the reference ``Graph``'s four CSR fields as numpy arrays), a
-configuration (``dataclasses.asdict`` of a reference
-``PartitionerConfig``) and a request (its fields). Tests hand both
-packages the same input, and the serving tests the same traffic,
-through these, without this package importing the reference.
+distributed graph (a reference ``GraphShards``' fields), a configuration
+(``dataclasses.asdict`` of a reference ``PartitionerConfig``: the
+distributed memory model's ``contraction`` / ``balance`` / ``weights``
+are among its fields) and a request (its fields: ``backend`` carries the
+routing of the distributed engine's collectives, ``dist-grid`` being the
+reference's ``use_grid=True``). Tests hand both packages the same input, and the
+serving tests the same traffic, through these, without this package
+importing the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Any, Mapping
 import numpy as np
 
 from .core.deep_mgp import PartitionerConfig
+from .graphs.distribute import GraphShards
 from .graphs.format import Graph
 
 
@@ -30,6 +35,16 @@ def config_from_dict(d: Mapping[str, Any]) -> PartitionerConfig:
     """The port's ``PartitionerConfig`` from a reference config's fields;
     an unknown field raises ``TypeError``."""
     return PartitionerConfig(**dict(d)).validate()
+
+
+def shards_from(shards) -> GraphShards:
+    """The port's ``GraphShards`` over copies of a reference
+    ``GraphShards``' fields (any object with them)."""
+    return GraphShards(**{
+        f.name: (np.array(getattr(shards, f.name))
+                 if isinstance(getattr(shards, f.name), np.ndarray)
+                 else int(getattr(shards, f.name)))
+        for f in dataclasses.fields(GraphShards)})
 
 
 def request_from_fields(fields: Mapping[str, Any]):

@@ -73,14 +73,18 @@
 // arc's weight into its label's slot with int32 atomics (exact in any
 // order; a warp's lanes of one label add up first, by __match_any_sync,
 // so a label that fills the row costs one atomic a warp, not one a lane),
-// then walks the distinct labels: admission, the four-stage tie chain as
-// four CTA reductions, own_conn from the own label's slot; and writes tgt,
+// then walks the distinct labels: admission (either form: the distributed
+// form's budgets ride in the overflow beside the cluster weights, and a
+// label's budget is taken from its slot as its weight is), the
+// four-stage tie chain as four CTA reductions, own_conn from the own
+// label's slot; and writes tgt,
 // pmove, light and the d_in / d_out atomics as move_row does. Phase A
 // skips the rows the heavy CTAs flagged; phase B is unchanged. The tie
 // chain is a total order over distinct labels and connectivity an exact
 // int32 sum, so splitting a row cannot change its argmax. Bound: the
-// heavy rows' lanes, read once (12 bytes each), plus the tables' traffic,
-// which stays in L2. The stacked call takes no overflow.
+// heavy rows' lanes, read once (12 bytes each, 16 in the distributed
+// form), plus the tables' traffic, which stays in L2. The stacked call
+// takes no overflow.
 #include "common.cuh"
 
 namespace {
@@ -246,16 +250,19 @@ lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
 }
 
 // The heavy rows, one CTA each (solo calls only): hrow[h] is the row,
-// hptr[h] .. hptr[h + 1] its overflow arcs (olab / ow / ocw), after its D
-// slab lanes. tab holds 6 (H D + hptr[H]) ints: row h's table of T = 2
-// (D + its overflow) slots (key, conn, cw) at 6 (h D + hptr[h]).
+// hptr[h] .. hptr[h + 1] its overflow arcs (olab / ow / ocw, and obud in
+// the distributed form, nbud != nullptr), after its D slab lanes. tab
+// holds 8 (H D + hptr[H]) ints: row h's table of T = 2 (D + its overflow)
+// slots (key, conn, cw, bud) at 8 (h D + hptr[h]).
 __global__ void __launch_bounds__(HEAVY)
 lp_move_heavy(const int* __restrict__ nlab, const int* __restrict__ nw,
-              const int* __restrict__ ncw, const int* __restrict__ own,
+              const int* __restrict__ ncw, const int* __restrict__ nbud,
+              const int* __restrict__ own,
               const int* __restrict__ vw, int R, int D, int W, uint32_t salt,
               int num_labels, const int* __restrict__ hrow,
               const int* __restrict__ hptr, const int* __restrict__ olab,
               const int* __restrict__ ow, const int* __restrict__ ocw,
+              const int* __restrict__ obud,
               int* __restrict__ tab, int* __restrict__ heavy,
               int* __restrict__ tgt, int* __restrict__ pmove,
               int* __restrict__ light, int* __restrict__ din,
@@ -266,13 +273,15 @@ lp_move_heavy(const int* __restrict__ nlab, const int* __restrict__ nw,
   const int h = blockIdx.x, r = hrow[h];
   if (r < 0 || r >= R) __trap();
   const int a0 = hptr[h], lanes = D + (hptr[h + 1] - a0), T = 2 * lanes;
-  int* key = tab + (size_t)6 * ((size_t)h * D + a0);
+  int* key = tab + (size_t)8 * ((size_t)h * D + a0);
   int* conn = key + T;
   int* cw = conn + T;
+  int* bd = cw + T;
   for (int i = threadIdx.x; i < T; i += HEAVY) {
     key[i] = 0;
     conn[i] = 0;
     cw[i] = I32_MAX;
+    bd[i] = I32_MAX;
   }
   if (threadIdx.x == 0) {
     heavy[r] = 1;
@@ -282,27 +291,31 @@ lp_move_heavy(const int* __restrict__ nlab, const int* __restrict__ nw,
   const size_t row = (size_t)r * D;
   for (int j0 = 0; j0 < lanes; j0 += HEAVY) {   // uniform: whole warps
     const int j = j0 + threadIdx.x;
-    int l = -1, x = 0, c = 0;
+    int l = -1, x = 0, c = 0, b = 0;
     if (j < D) {
       l = nlab[row + j];
       if (l >= 0) {
         x = nw[row + j];
         c = ncw[row + j];
+        if (nbud) b = nbud[row + j];
       }
     } else if (j < lanes) {
       const int a = a0 + (j - D);
       l = olab[a];
       x = ow[a];
       c = ocw[a];
+      if (nbud) b = obud[a];
     }
     const unsigned grp = __match_any_sync(FULL_MASK, l);
     if (l >= 0) {
       const int sum = (int)__reduce_add_sync(grp, (unsigned)x);
       const int cmin = __reduce_min_sync(grp, c);
+      const int bmin = __reduce_min_sync(grp, b);
       if (lane == __ffs(grp) - 1) {
         const int slot = claim_slot(key, T, l);
         atomicAdd(conn + slot, sum);
         atomicMin(cw + slot, cmin);
+        if (nbud) atomicMin(bd + slot, bmin);
       }
     }
   }
@@ -314,7 +327,8 @@ lp_move_heavy(const int* __restrict__ nlab, const int* __restrict__ nw,
     if (k == 0) continue;
     const int l = k - 1, cn = conn[i], cj = cw[i];
     const bool stay = l == o;
-    const int score = (stay || wadd(cj, v) <= W) ? cn : -1;
+    const bool fits = nbud ? cj <= wsub(bd[i], v) : wadd(cj, v) <= W;
+    const int score = (stay || fits) ? cn : -1;
     const int hj = h32(l, salt);
     if (better(score, cj, hj, l, bs, bc, bh, bl)) {
       bs = score; bc = cj; bh = hj; bl = l;
@@ -483,7 +497,7 @@ lp_move_sort_revert(uint64_t* k0, int* r0, uint64_t* k1, int* r1,
 // Scratch layout, 256-byte aligned pieces, each holding S requests' parts
 // one after the other. Everything from din on is cleared by one memset per
 // call.
-// The heavy rows' tables (6 ints a lane of theirs, cleared by their CTAs)
+// The heavy rows' tables (8 ints a lane of theirs, cleared by their CTAs)
 // and flags (one a row, zeroed) are there only when H > 0.
 struct Scratch {
   int *pmove, *light, *newcw;
@@ -514,7 +528,7 @@ size_t carve(char* base, int S, int R, int num_labels, int H, int64_t lanes,
     s->key[i] = (uint64_t*)take(8 * r);
     s->row[i] = (int*)take(4 * r);
   }
-  s->tab = H ? (int*)take(24 * (size_t)lanes) : nullptr;
+  s->tab = H ? (int*)take(32 * (size_t)lanes) : nullptr;
   const size_t zero_from = off;
   s->din = (int*)take(4 * nl);
   s->dout = (int*)take(4 * nl);
@@ -542,10 +556,10 @@ bool bad_shape(int S, int R, int D, int num_labels) {
 }
 
 // The heavy rows of a solo call: H of them, their overflow (hrow, hptr,
-// olab, ow, ocw) of M arcs.
+// olab, ow, ocw, and obud in the distributed form) of M arcs.
 struct Heavy {
   int H, M;
-  const int *hrow, *hptr, *olab, *ow, *ocw;
+  const int *hrow, *hptr, *olab, *ow, *ocw, *obud;
 };
 
 int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
@@ -562,9 +576,9 @@ int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
   if (err != cudaSuccess) return (int)err;
   if (hv.H) {
     lp_move_heavy<<<hv.H, HEAVY, 0, st>>>(
-        nlab, nw, ncw, own, vw, R, D, q.W1, q.salt1, num_labels, hv.hrow,
-        hv.hptr, hv.olab, hv.ow, hv.ocw, s.tab, s.heavy, tgt, s.pmove,
-        s.light, s.din, s.dout);
+        nlab, nw, ncw, nbud, own, vw, R, D, q.W1, q.salt1, num_labels,
+        hv.hrow, hv.hptr, hv.olab, hv.ow, hv.ocw, hv.obud, s.tab, s.heavy,
+        tgt, s.pmove, s.light, s.din, s.dout);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   lp_move_rows<<<dim3((R + WARPS * ROWS - 1) / (WARPS * ROWS), S),
@@ -601,9 +615,10 @@ extern "C" int lp_move_scratch_bytes(int S, int R, int num_labels, int H,
 // own / nlab (and hence targets) must lie in [0, num_labels); a mover's
 // label outside it stops the kernel (__trap). H heavy rows hrow (distinct,
 // in [0, R); each of more than D lanes, its first D in the slab) have
-// their further arcs at hptr[h] .. hptr[h + 1] of olab / ow / ocw (M in
-// all; the lanes of one label carry one cluster weight); H == 0 needs none
-// of them, and H > 0 only the host form. scratch holds
+// their further arcs at hptr[h] .. hptr[h + 1] of olab / ow / ocw, and
+// obud in the distributed form (M in all; the lanes of one label carry
+// one cluster weight and one budget); H == 0 needs none of them. scratch
+// holds
 // lp_move_scratch_bytes(1, R, num_labels, H, H D + M) bytes, 256-byte
 // aligned, in any state; moved and tgt hold R ints each.
 extern "C" int lp_move_chunk(const int* nlab, const int* nw, const int* ncw,
@@ -611,14 +626,16 @@ extern "C" int lp_move_chunk(const int* nlab, const int* nw, const int* ncw,
                              int R, int D, int W, int v0, uint32_t salt,
                              int num_labels, int H, const int* hrow,
                              const int* hptr, const int* olab, const int* ow,
-                             const int* ocw, int M, int* moved, int* tgt,
-                             void* scratch, void* stream) {
+                             const int* ocw, const int* obud, int M,
+                             int* moved, int* tgt, void* scratch,
+                             void* stream) {
   if (bad_shape(1, R, D, num_labels) || H < 0 || M < 0 ||
-      (H && (nbud || !hrow || !hptr || (M && (!olab || !ow || !ocw)))) ||
+      (H && (!hrow || !hptr ||
+             (M && (!olab || !ow || !ocw || (nbud && !obud))))) ||
       2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   const ReqArgs q{nullptr, nullptr, nullptr, W, v0, salt};
-  const Heavy hv{H, M, hrow, hptr, olab, ow, ocw};
+  const Heavy hv{H, M, hrow, hptr, olab, ow, ocw, obud};
   return launch(nlab, nw, ncw, nbud, own, vw, 1, R, D, q, num_labels, hv,
                 moved, tgt, scratch, stream);
 }
@@ -638,7 +655,8 @@ extern "C" int lp_move_chunk_stacked(const int* nlab, const int* nw,
   if (bad_shape(S, R, D, num_labels) || !W || !v0 || !salt)
     return (int)cudaErrorInvalidValue;
   const ReqArgs q{W, v0, salt, 0, 0, 0u};
-  const Heavy none{0, 0, nullptr, nullptr, nullptr, nullptr, nullptr};
+  const Heavy none{0, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   nullptr};
   return launch(nlab, nw, ncw, nbud, own, vw, S, R, D, q, num_labels, none,
                 moved, tgt, scratch, stream);
 }

@@ -1,0 +1,16 @@
+"""Distributed subsystem (paper §4–5) — port of ``repro.dist`` onto
+``torch.distributed``: sparse all-to-all collectives over a process group
+(``collectives``), distributed LP clustering and refinement (``dist_lp``),
+sharded contraction (``dist_contraction``), the distributed balancer
+(``dist_balance``) and the distributed deep-MGP driver
+(``dist_partitioner``). One rank a PE; every rank runs the same host code
+and returns the same result.
+
+Nothing here initialises a process group at import; the engine functions
+take a ``PeGroup`` (or the initialised default group's, see
+``api.runtime.distributed_init``). The reference's ``sharding`` module
+(named-axis rules for the model layers) is not ported yet.
+"""
+from .collectives import PeGroup, grid_factors, world_group
+
+__all__ = ["PeGroup", "grid_factors", "world_group"]

@@ -15,7 +15,9 @@ if it is not 0.
 the card (never the plain-version calls): a run reads it to show which
 kernels its path went through. ``lp_move_stacked`` counts the stacked
 calls of the ``lp_move`` library (several requests' chunks at once)
-apart from its solo calls.
+apart from its solo calls; ``lp_move_dist`` / ``bal_scores_dist`` (and
+their ``_heavy_dist``) the distributed engine's forms (the ``nbud``
+admission, the ghost label table) apart from the single-device ones.
 
 Building, loading and counting are safe under threads (a session runs
 requests on a thread pool): one lock spans ``load``'s check, build and
@@ -43,8 +45,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"lp_move": 0, "lp_move_heavy": 0,
-                            "lp_move_stacked": 0, "seg_merge": 0,
+                            "lp_move_stacked": 0, "lp_move_dist": 0,
+                            "lp_move_heavy_dist": 0, "seg_merge": 0,
                             "bal_scores": 0, "bal_scores_heavy": 0,
+                            "bal_scores_dist": 0,
+                            "bal_scores_heavy_dist": 0,
                             "greedy_pick": 0, "lp_gain": 0, "bsr_spmm": 0,
                             "embedding_bag": 0}
 

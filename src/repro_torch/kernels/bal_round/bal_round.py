@@ -7,7 +7,9 @@ that fed the TPU kernel its pre-gathered slabs, reading the ELL ids and the
 block tables itself. A CPU tensor runs the plain version (``ref``); a CUDA
 tensor launches the kernel or raises. Heavy rows (arcs beyond a capped
 slab, ``overflow``) are then rescored by the kernel's heavy-row path,
-counted apart as ``bal_scores_heavy``.
+counted apart as ``bal_scores_heavy``. The distributed balancer's calls
+(``dist=True``: one PE's label table) count as ``bal_scores_dist`` and
+``bal_scores_heavy_dist``.
 """
 from __future__ import annotations
 
@@ -27,13 +29,15 @@ __all__ = ["NEG_INF", "bal_scores", "greedy_pick"]
 
 
 def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
-               n: int, salt: int, parent=None, overflow=None):
+               n: int, salt: int, parent=None, overflow=None,
+               dist: bool = False):
     """Per-vertex relative gains + targets, ``(rel, tgt)`` (R,) f32 /
     int32; the contract of ``ref.bal_scores_ell_ref``. ``ell_idx`` /
     ``ell_w`` (R, D) int32 (-1 / 0 padding), ``labels`` / ``vw`` (R,),
     the block tables (K,) int32; ``parent`` selects the restricted form;
     ``overflow`` ``(rows, ptr, idx, w)`` int32 the heavy rows' arcs beyond
-    the slab."""
+    the slab. ``dist`` names the distributed balancer's call (its launch
+    counter) and changes nothing else."""
     if ell_idx.device.type == "cpu":
         return bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
                                   fb_of_block, n, salt, parent=parent,
@@ -78,7 +82,8 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
             int(salt) & 0xFFFFFFFF)
     err = lib.bal_scores(*args, p(rel), p(tgt), _build.stream_of(ell_idx))
     _build.check(err, "bal_scores")
-    _build.count_launch("bal_scores")
+    form = "_dist" if dist else ""
+    _build.count_launch("bal_scores" + form)
     if H:
         # the heavy rows' label tables (2 slots a lane, key and sum),
         # cleared by their CTAs
@@ -87,7 +92,7 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
                                    p(tab), p(rel), p(tgt),
                                    _build.stream_of(ell_idx))
         _build.check(err, "bal_scores_heavy")
-        _build.count_launch("bal_scores_heavy")
+        _build.count_launch("bal_scores_heavy" + form)
     return rel, tgt
 
 

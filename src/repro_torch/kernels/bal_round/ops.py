@@ -11,6 +11,17 @@ composed path masks them, so (labels, block_w) trajectories are
 bit-identical. The slab's width is capped as the LP move kernel's is
 (``lp_move.ops.slab_width``); a hub's arcs beyond it go to an
 ``Overflow``, which ``bal_scores`` takes by its heavy-row path.
+
+The distributed balancer (``dist/dist_balance.py``) scores one PE's
+shard: its lanes index the PE's label table ``tab`` = [local labels,
+ghost labels, sentinel k], its own blocks are the local labels, and its
+valid rows are the PE's real vertices, a prefix of its rows. The kernel
+serves that form as it is: the dist ELL (``build_balance_ell_dist``) has
+a row for every table entry (rows past the local ones carry no arcs), so
+``tab`` is the kernel's label table, each local row's own block is its
+table entry, and validity is ``r < n_valid``. Only rows that never move
+(the sentinel and the ghost rows) read another own block than the
+reference's, and their targets are never applied.
 """
 from __future__ import annotations
 
@@ -46,6 +57,28 @@ def build_balance_ell(g, n_pad: int, device=None):
     return idx, w, overflow
 
 
+def build_balance_ell_dist(shards, p: int, device=None):
+    """PE ``p``'s ELL over its label-table rows (locals, ghosts,
+    sentinel): ``(idx, w, overflow)``, lanes holding indices into the
+    table, the ghost and sentinel rows empty; width capped and hub arcs in
+    the ``Overflow`` as in ``build_balance_ell``. Sentinel arcs (src ==
+    n_loc) are dropped: arc-less rows never move."""
+    indptr, adj, aw = move_ops.local_csr(shards, p)
+    rows = shards.table_size
+    deg = np.zeros(rows, dtype=np.int64)
+    deg[:shards.n_loc] = np.diff(indptr)
+    D = move_ops.slab_width(deg, rows)
+    slab, over, temp = move_ops.split_bytes(deg, rows, D, 1)
+    dispatch.check_ell_bytes("build_balance_ell_dist", (rows, D),
+                             slab + over + temp,
+                             slab + over + 16 * int(deg[deg > D].sum()),
+                             device)
+    idx = np.full((rows, D), -1, dtype=np.int32)
+    w = np.zeros((rows, D), dtype=np.int32)
+    overflow = move_ops.ell_rows(indptr, adj, aw, 0, shards.n_loc, idx, w)
+    return idx, w, overflow
+
+
 def fallback_table(block_w, parent, restricted: bool):
     """Each block's lightest-block fallback target, (K,) int32: the
     lightest block overall, or (restricted) the lightest sibling within the
@@ -71,6 +104,22 @@ def fused_round_scores(labels, bw, l_max, parent, ell_idx, ell_w, vw_pad,
     return bal_scores(ell_idx, ell_w, labels, vw_pad, bw, l_max, fb, n, salt,
                       parent=parent if restricted else None,
                       overflow=overflow)
+
+
+def fused_round_scores_dist(tab, lab_src, bw, l_max, ell_idx, ell_w,
+                            vw_pad, vld: int, salt: int, overflow=None):
+    """The distributed round's scores, the reference's ``(tab, lab_src,
+    bw, l_max, ..., vld)`` form: ``bal_scores`` over the PE's table-row
+    ELL (``build_balance_ell_dist``), ``(rel, tgt)`` over the (n_loc + 1,)
+    rows of ``lab_src`` / ``vw_pad``. ``vld`` is the number of valid rows,
+    a prefix (the reference's ``gid < n``); unrestricted only. Counted as
+    ``bal_scores_dist``."""
+    num = lab_src.shape[0]
+    vw_tab = torch.cat([vw_pad, vw_pad.new_zeros(tab.shape[0] - num)])
+    fb = fallback_table(bw, None, False)
+    rel, tgt = bal_scores(ell_idx, ell_w, tab, vw_tab, bw, l_max, fb, vld,
+                          salt, overflow=overflow, dist=True)
+    return rel[:num], tgt[:num]
 
 
 def balance_round_fused(labels, block_w, l_max, parent, ell_idx, ell_w,

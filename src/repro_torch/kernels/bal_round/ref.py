@@ -87,7 +87,7 @@ def bal_scores_ref(nlab, nw, nbw, nlm, own, vw, ovr, vld, fb_t, fb_ok,
 
 def bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
                        fb_of_block, n: int, salt: int, parent=None,
-                       overflow=None):
+                       overflow=None, dist: bool = False):
     """``(rel, tgt)`` of the rows of an ELL graph: ``ell_idx`` / ``ell_w``
     (R, D) int32 neighbour rows and arc weights (-1 / 0 padding),
     ``labels`` / ``vw`` (R,) int32 block and vertex weight of each row,
@@ -97,7 +97,8 @@ def bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
     are gathered here as the fused round gathered them for the TPU
     kernel. ``overflow``: ``(rows, ptr, idx, w)`` int32, the arcs of the
     heavy rows beyond their slab lanes (``lp_move.ops.Overflow``), or
-    None."""
+    None. ``dist`` is the wrapper's (it names the launch counter) and
+    changes nothing."""
     valid_l = ell_idx >= 0
     nlab = torch.where(valid_l, labels[torch.where(valid_l, ell_idx, 0)
                                        .long()], -1)

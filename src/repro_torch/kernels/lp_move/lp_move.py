@@ -8,7 +8,9 @@ stacked level-0 clustering). A CPU tensor runs the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises.
 
 A chunk with heavy rows (arcs beyond the slab, ``overflow``) also runs
-the kernel's heavy-row path, counted apart as ``lp_move_heavy``.
+the kernel's heavy-row path, counted apart as ``lp_move_heavy``. A call
+in the distributed admission form (``nbud``, the ``dist/`` engine's)
+counts as ``lp_move_dist`` (and ``lp_move_heavy_dist``) instead.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from .. import _build
 from .ref import lp_move_chunk_ref, lp_move_chunk_stacked_ref
 
 _SIG = {"lp_move_chunk": [_build.P] * 6 + [_build.I] * 4 + [_build.U]
-        + [_build.I] * 2 + [_build.P] * 5 + [_build.I] + [_build.P] * 4,
+        + [_build.I] * 2 + [_build.P] * 6 + [_build.I] + [_build.P] * 4,
         "lp_move_chunk_stacked": [_build.P] * 6 + [_build.I] * 4
         + [_build.P] * 7,
         "lp_move_scratch_bytes": [_build.I] * 5 + [_build.P]}
@@ -48,7 +50,8 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     ``ref.lp_move_chunk_ref``. ``num_labels`` sizes the kernel's
     label-indexed weight tables: every label must lie below it.
     ``overflow``: ``(rows, ptr, nlab, nw, ncw)`` int32 of the chunk's
-    heavy rows (``ops.overflow_operands``), host admission form only."""
+    heavy rows (``ops.overflow_operands``), with their budgets ``nbud``
+    sixth in the distributed admission form."""
     if nlab.device.type == "cpu":
         return lp_move_chunk_ref(nlab, nw, ncw, own, vw, W, v0, salt,
                                  num_labels, nbud=nbud, overflow=overflow)
@@ -65,18 +68,22 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
         raise ValueError(f"lp_move_chunk: R={R}, D={D}, num_labels="
                          f"{num_labels} outside the launch limits [1, 2^31)"
                          " (int32 row ids and labels)")
-    H, M, hv = 0, 0, (None,) * 5
+    H, M, hv = 0, 0, (None,) * 6
     if overflow is not None and overflow[0].shape[0]:
-        if nbud is not None:
-            raise ValueError("lp_move_chunk: overflow rows take the host "
-                             "admission form only (nbud is None)")
-        hv = overflow
+        want = 5 if nbud is None else 6     # + the budgets
+        if len(overflow) != want:
+            raise ValueError(f"lp_move_chunk: an overflow of "
+                             f"{len(overflow)} entries; this admission "
+                             f"form takes {want}")
+        hv = tuple(overflow) + (None,) * (6 - len(overflow))
         H, M = hv[0].shape[0], hv[2].shape[0]
         _build.require("lp_move_chunk overflow rows", hv[0], torch.int32,
                        (H,), dev)
         _build.require("lp_move_chunk overflow ptr", hv[1], torch.int32,
                        (H + 1,), dev)
-        for name, t in zip(("nlab", "nw", "ncw"), hv[2:]):
+        for name, t in zip(("nlab", "nw", "ncw", "nbud"), hv[2:]):
+            if t is None:
+                continue
             _build.require(f"lp_move_chunk overflow {name}", t, torch.int32,
                            (M,), dev)
         if not 2 * (H * D + M) < 2**31:
@@ -96,9 +103,10 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
         *(p(t) for t in hv), M, p(moved), p(tgt), p(scratch),
         _build.stream_of(nlab))
     _build.check(err, "lp_move")
-    _build.count_launch("lp_move")
+    form = "" if nbud is None else "_dist"
+    _build.count_launch("lp_move" + form)
     if H:
-        _build.count_launch("lp_move_heavy")
+        _build.count_launch("lp_move_heavy" + form)
     return moved, tgt
 
 

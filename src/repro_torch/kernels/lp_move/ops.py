@@ -196,13 +196,16 @@ def chunk_operands(labels, cluster_w, c_idx, v0: int, vweights, R: int):
     return nlab, ncw, labels[rows], vweights[rows]
 
 
-def overflow_operands(labels, cluster_w, ov):
+def overflow_operands(labels, cluster_w, ov, budget=None):
     """The kernel's overflow operands of one chunk, ``(rows, ptr, nlab,
     nw, ncw)``, from its device ``Overflow``: the overflow arcs' labels
-    and cluster weights gathered, in O(overflow)."""
+    and cluster weights gathered, in O(overflow); with a label-indexed
+    ``budget`` (the distributed admission form), the arcs' budgets
+    sixth."""
     rows, ptr, o_idx, o_w = ov
     nlab = labels[o_idx.long()]
-    return rows, ptr, nlab, o_w, cluster_w[nlab.long()]
+    out = (rows, ptr, nlab, o_w, cluster_w[nlab.long()])
+    return out if budget is None else out + (budget[nlab.long()],)
 
 
 def _chunk_step(labels, cluster_w, c_idx, c_w, v0: int, salt: int,
@@ -240,6 +243,79 @@ def cluster_iteration_fused(labels, cluster_w, chunks_idx, chunks_w, v0s,
             labels, cluster_w, chunks_idx[b], chunks_w[b], int(v0s[b]),
             salt, vweights, W, R, None if overflow is None else overflow[b])
     return labels, cluster_w
+
+
+# ---------------------------------------------------------------------------
+# the distributed engine's chunks: one PE's local vertices
+# ---------------------------------------------------------------------------
+
+def local_csr(shards, p: int):
+    """PE ``p``'s arcs as a CSR over its ``n_loc`` local rows: ``(indptr,
+    dst_idx, w)``, neighbours as indices into the PE's (local + ghost +
+    sentinel) label table. Sentinel arcs (src == n_loc) are dropped."""
+    n_loc = shards.n_loc
+    real = shards.arc_src[p] < n_loc
+    sv = shards.arc_src[p][real].astype(np.int64)
+    order = np.argsort(sv, kind="stable")
+    indptr = np.zeros(n_loc + 1, dtype=np.int64)
+    np.cumsum(np.bincount(sv, minlength=n_loc), out=indptr[1:])
+    return (indptr, shards.arc_dst_idx[p][real][order],
+            shards.arc_w[p][real][order])
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMoveChunks:
+    """One PE's ELL chunks for the fused distributed clustering: the ELL
+    twin of ``graphs.distribute.chunk_local_arcs`` for that PE. Row ``r``
+    of chunk ``b`` is local vertex ``v0[b] + r``; lanes hold indices into
+    the PE's label table. Same vertex ranges as the arc chunks, so the
+    fused clustering is bit-identical to the composed one; the width is
+    capped by ``slab_width``, a hub's further arcs in ``overflow[b]``."""
+    idx: np.ndarray   # (B, R, D) int32, -1 padding
+    w: np.ndarray     # (B, R, D) int32, 0 padding
+    v0: np.ndarray    # (B,) int32 first local row of each chunk
+    overflow: Tuple[Optional[Overflow], ...]
+
+    @property
+    def shape(self):
+        return self.idx.shape
+
+
+def build_move_chunks_dist(shards, num_chunks: int, p: int,
+                           device=None) -> DistMoveChunks:
+    """ELL twin of ``graphs.distribute.chunk_local_arcs`` for PE ``p``:
+    its chunks' vertex spans (the arcs of one vertex never straddle a
+    chunk), R the largest span rounded up to a power of two, the lane
+    width capped as ``build_move_chunks`` caps it. Raises
+    ``dispatch.EllTooLarge`` before it allocates when the build would not
+    fit the host, or the card (``device``, CUDA)."""
+    from ...graphs.distribute import chunk_local_arcs
+
+    srcs, _, _ = chunk_local_arcs(shards, num_chunks)
+    B, n_loc = srcs.shape[1], shards.n_loc
+    spans = np.zeros((B, 2), dtype=np.int64)
+    for b in range(B):
+        sv = srcs[p, b][srcs[p, b] < n_loc]
+        if sv.size:
+            spans[b] = (int(sv.min()), int(sv.max()) + 1)
+    R = lp._next_pow2(max(1, int((spans[:, 1] - spans[:, 0]).max())))
+    indptr, adj, aw = local_csr(shards, p)
+    deg = np.diff(indptr)
+    D = slab_width(deg, B * R)
+    slab, over, temp = split_bytes(deg, B * R, D, B)
+    table = n_loc + shards.n_ghost + 1
+    dispatch.check_ell_bytes("build_move_chunks_dist", (B, R, D),
+                             slab + over + temp,
+                             stacked_bytes(1, B, R, D, table) + 3 * over,
+                             device)
+    idx = np.full((B, R, D), -1, dtype=np.int32)
+    w = np.zeros((B, R, D), dtype=np.int32)
+    overflow = tuple(ell_rows(indptr, adj, aw, int(spans[b, 0]),
+                              int(spans[b, 1]), idx[b], w[b])
+                     if spans[b, 1] > spans[b, 0] else None
+                     for b in range(B))
+    return DistMoveChunks(idx=idx, w=w, v0=spans[:, 0].astype(np.int32),
+                          overflow=overflow)
 
 
 # ---------------------------------------------------------------------------

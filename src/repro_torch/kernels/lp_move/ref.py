@@ -12,7 +12,8 @@ calls it.
 It takes the kernel's split form: a chunk's heavy rows have arcs beyond
 the slab's D lanes (``overflow``), and their phase A runs over the
 distinct labels of the whole row (``heavy_targets_ref``), as the kernel's
-heavy-row path does. The tie chain is a total order over distinct labels
+heavy-row path does, in either admission form (the distributed form's
+overflow carries the labels' budgets too). The tie chain is a total order over distinct labels
 and a label's connectivity is an int32 sum, exact in any order, so the
 split gives what the whole row gives.
 """
@@ -82,20 +83,28 @@ def label_groups(hid, lab, w):
 
 
 def heavy_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
-                      overflow):
+                      overflow, nbud=None):
     """Phase A of the heavy rows over their whole rows: ``(rows, mv, tgt,
     light)``. ``overflow`` is ``(rows, ptr, nlab, nw, ncw)``, the kernel's
-    overflow operands; the lanes of one label carry one cluster weight
-    (``chunk_operands`` gathers it by label), whose minimum is taken."""
-    rows, ptr, o_lab, o_w, o_cw = overflow
+    overflow operands, with the arcs' budgets ``nbud`` as a sixth entry in
+    the distributed admission form (``nbud`` the slab's); the lanes of one
+    label carry one cluster weight and one budget (``chunk_operands``
+    gathers them by label), whose minimum is taken."""
+    rows, ptr, o_lab, o_w, o_cw = overflow[:5]
     H = rows.shape[0]
-    hid, (lab, w, cw) = heavy_arcs(rows, ptr, (nlab, nw, ncw),
-                                   (o_lab, o_w, o_cw))
-    g_row, g_lab, gid, conn = label_groups(hid, lab, w)
-    g_cw = segment_min(cw, gid, conn.shape[0])
+    slab, extra = (nlab, nw, ncw), (o_lab, o_w, o_cw)
+    if nbud is not None:
+        slab, extra = slab + (nbud,), extra + (overflow[5],)
+    hid, vals = heavy_arcs(rows, ptr, slab, extra)
+    g_row, g_lab, gid, conn = label_groups(hid, vals[0], vals[1])
+    g_cw = segment_min(vals[2], gid, conn.shape[0])
     r_own, r_vw = own[rows.long()], vw[rows.long()]
     stay = g_lab == r_own[g_row]
-    fits = ((g_cw + r_vw[g_row]) <= W) | stay
+    if nbud is None:
+        fits = ((g_cw + r_vw[g_row]) <= W) | stay
+    else:
+        g_bud = segment_min(vals[3], gid, conn.shape[0])
+        fits = (g_cw <= (g_bud - r_vw[g_row])) | stay
     score = torch.where(fits, conn, -1)
     best, tgt = _argmax_target(g_row, g_lab, score, g_cw, salt, H - 1)
     light = segment_min(torch.where(score == best[g_row], g_cw, I32_MAX),
@@ -109,11 +118,8 @@ def move_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
                      nbud=None, overflow=None):
     """Phase A per row: ``(mv, tgt, light)``, whether the row moves, its
     target (``own`` if it stays) and the weight key of its best lanes.
-    ``overflow`` (host admission form only): the heavy rows' arcs beyond
-    the slab, see ``heavy_targets_ref``."""
-    if overflow is not None and nbud is not None:
-        raise ValueError("lp_move: overflow rows take the host admission "
-                         "form only (nbud is None)")
+    ``overflow``: the heavy rows' arcs beyond the slab, see
+    ``heavy_targets_ref``."""
     validn = nlab >= 0
     staying = nlab == own[:, None]
     if nbud is None:
@@ -128,7 +134,7 @@ def move_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
     tgt = torch.where(mv, tgt, own)
     if overflow is not None and overflow[0].shape[0]:
         rows, mv_h, tgt_h, light_h = heavy_targets_ref(
-            nlab, nw, ncw, own, vw, W, salt, overflow)
+            nlab, nw, ncw, own, vw, W, salt, overflow, nbud)
         mv[rows], tgt[rows], light[rows] = mv_h, tgt_h, light_h
     return mv, tgt, light
 
@@ -153,7 +159,8 @@ def lp_move_chunk_ref(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     own/vw (R,) int32; ``nbud is None`` selects the host admission form
     ``ncw + vw <= W``, else the distributed ``ncw <= nbud - vw``. Labels
     lie in [0, num_labels). ``overflow``: ``(rows, ptr, nlab, nw, ncw)``
-    of the chunk's heavy rows (``ops.overflow_operands``), or None."""
+    of the chunk's heavy rows (``ops.overflow_operands``), and ``nbud``
+    sixth in the distributed form, or None."""
     R, _ = nlab.shape
     mv, tgt, light = move_targets_ref(nlab, nw, ncw, own, vw, W, salt, nbud,
                                       overflow)

@@ -17,17 +17,20 @@ autoscaler's ``ProcessScaler`` all coordinate on it), then serves
 until SIGTERM/SIGINT — which drains gracefully: no new admissions,
 in-flight work finishes, queued tickets resolve ``server_closed``.
 
-A worker passes ``--coordinator host:port --num-processes N
+A worker takes ``--coordinator host:port --num-processes N
 --process-id I`` (or the ``REPRO_COORDINATOR`` etc. environment
-variables) to ``repro_torch.api.runtime.distributed_init`` first: one
-process is a no-op; more raise until the distributed engine (``dist/``)
-is ported, as ``--devices-per-mesh`` above 1 does.
+variables) for ``repro_torch.api.runtime.distributed_init``: one process
+is a no-op. A worker of more processes serves multi-device meshes, which
+are not ported yet (ROADMAP queue 1, item 1: multi-mesh serving and the
+fabric's ``devices_per_mesh > 1``): it exits 2, as ``--devices-per-mesh``
+above 1 does.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
@@ -79,6 +82,14 @@ def _run_worker(args) -> int:
     from repro_torch.fabric import FabricWorker
     from repro_torch.kernels.dispatch import NoCudaDevice
 
+    procs = args.num_processes or int(
+        os.environ.get("REPRO_NUM_PROCESSES") or 1)
+    if procs > 1:
+        print(f"fabric worker: a worker of {procs} processes serves "
+              "multi-device meshes, which are not ported to repro_torch "
+              "yet (ROADMAP queue 1, item 1: multi-mesh serving and the "
+              "fabric's devices_per_mesh > 1)", file=sys.stderr)
+        return 2
     try:
         # the multi-process group first (a no-op for one process)
         info = runtime.distributed_init(
@@ -152,8 +163,8 @@ def main(argv=None) -> int:
                     help="torch device of the worker's server (default: "
                          "the card; 'cpu' on purpose)")
     wp.add_argument("--coordinator", default=None,
-                    help="multi-process coordinator HOST:PORT (needs the "
-                         "distributed engine)")
+                    help="multi-process coordinator HOST:PORT (a worker "
+                         "of more than one process is not ported yet)")
     wp.add_argument("--num-processes", type=int, default=None)
     wp.add_argument("--process-id", type=int, default=None)
     wp.set_defaults(run=_run_worker)

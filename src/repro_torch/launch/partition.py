@@ -6,15 +6,21 @@ reference's ``repro.launch.partition`` flag for flag, plus ``--device``.
       --preset strong --compare
   python -m repro_torch.launch.partition ... --quality best --trace
   python -m repro_torch.launch.partition ... --device cpu
+  python -m repro_torch.launch.partition ... --devices 4   # distributed
 
 Runs on the CUDA device unless ``--device`` names another (``cpu`` on
-purpose). Prints one JSON summary line per backend run; exit 0 iff the
+purpose). ``--devices P`` with P > 1 spawns P ranks, one process a PE
+(a card each, or the CPU with ``--device cpu``), joined through
+``api.runtime.distributed_init``; every rank runs the request and rank 0
+prints. Prints one JSON summary line per backend run; exit 0 iff the
 primary run is feasible.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import sys
 
 COMPARE_BACKENDS = ["plain_mgp", "single_level_lp"]
@@ -36,8 +42,8 @@ def main(argv=None) -> int:
                     help="also run plain-MGP and single-level baselines "
                          "as backends of the same request")
     ap.add_argument("--devices", type=int, default=0,
-                    help="PE count of the request; more than 1 resolves "
-                         "to a distributed backend, not ported yet")
+                    help="PE count of the request: more than 1 spawns one "
+                         "rank a PE and resolves to a distributed backend")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the CUDA "
                          "device; 'cpu' on purpose)")
@@ -70,7 +76,63 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true",
                     help="also print the per-level trace records")
     args = ap.parse_args(argv)
+    if args.devices > 1:
+        return _spawn(args)
+    return _run(args)
 
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(args) -> int:
+    """Run the request on ``args.devices`` ranks, one process each."""
+    import multiprocessing as mp
+    if args.device is None or not args.device.startswith("cpu"):
+        import torch
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < args.devices:
+            print(f"partition: no CUDA device for each of {args.devices} "
+                  f"ranks ({have} visible); pass --device cpu to run the "
+                  "ranks on the CPU", file=sys.stderr)
+            return 2
+    addr = f"127.0.0.1:{_free_port()}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank, args=(args, addr, r))
+             for r in range(args.devices)]
+    for pr in procs:
+        pr.start()
+    for pr in procs:
+        pr.join()
+    codes = [pr.exitcode for pr in procs]
+    # 0 / 1: rank 0's feasible / infeasible; anything else: a rank failed
+    return codes[0] if all(c in (0, 1) for c in codes) else 3
+
+
+def _rank(args, addr: str, rank: int) -> None:
+    os.environ.update(REPRO_COORDINATOR=addr,
+                      REPRO_NUM_PROCESSES=str(args.devices),
+                      REPRO_PROCESS_ID=str(rank))
+    import torch
+    import torch.distributed as dist
+    if args.device is not None and args.device.startswith("cpu"):
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // args.devices))
+    from repro_torch.api import runtime
+    try:
+        runtime.distributed_init(device=args.device)
+        code = _run(args, quiet=rank != 0)
+        dist.destroy_process_group()
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        code = 3
+    sys.exit(code)
+
+
+def _run(args, quiet: bool = False) -> int:
     from repro_torch.api import GraphSpec, PartitionRequest, Partitioner
 
     req = PartitionRequest(
@@ -88,6 +150,8 @@ def main(argv=None) -> int:
               "run on the CPU", file=sys.stderr)
         return 2
     res = engine.run(req)
+    if quiet:       # another rank prints
+        return 0 if res.feasible else 1
     print(json.dumps(res.summary()))
     if args.trace:
         for rec in res.trace:

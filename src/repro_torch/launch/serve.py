@@ -12,8 +12,8 @@ another, prints one JSON summary line per result and a final stats
 line. ``--verify`` re-runs every request solo through
 ``repro_torch.api.Partitioner`` on the same device and asserts
 bit-identical assignments. Exit 0 iff every request succeeded (and
-verified). ``--devices-per-mesh`` above 1 needs the distributed engine,
-which is not ported (exit 2).
+verified). ``--devices-per-mesh`` above 1 (multi-device meshes, not
+ported yet: ROADMAP queue 1) exits 2.
 """
 from __future__ import annotations
 

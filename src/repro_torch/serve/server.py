@@ -11,8 +11,8 @@ worker (``serve.scheduler``, reusing the ``auto`` policy's
 ``required_devices``); a ``GraphSpec`` cache shared across all workers;
 and supervision — a failed or timed-out attempt is retried once on
 another worker, then surfaced as a structured :class:`ServeResult`
-error. Multi-device meshes (``devices_per_mesh > 1``) wait for the
-distributed engine (``dist/``, not ported yet) and raise.
+error. Multi-device meshes (``devices_per_mesh > 1``) are not ported
+yet (ROADMAP queue 1, after multi-device sessions) and raise.
 
 Results are bit-identical to solo ``Partitioner.run`` for the same
 request: workers run the unmodified facade, and every request is a pure
@@ -348,8 +348,8 @@ class PartitionServer:
         (several workers share one card).
     devices_per_mesh:
         PE count of every worker; only 1 is ported (more raises
-        ``NotImplementedError``: multi-device meshes wait for the
-        distributed engine, ``dist/``, not ported yet).
+        ``NotImplementedError``: multi-device meshes follow multi-device
+        sessions in ROADMAP queue 1).
     backend:
         Optional registry name replacing each request's ``"auto"``.
     max_queue:
@@ -419,8 +419,9 @@ class PartitionServer:
         if devices_per_mesh > 1:
             raise NotImplementedError(
                 f"PartitionServer(devices_per_mesh={devices_per_mesh}): "
-                "multi-device meshes need the distributed engine, which "
-                "is not ported to repro_torch yet (dist/)")
+                "multi-device meshes are not ported to repro_torch yet: "
+                "they follow multi-device sessions in ROADMAP queue 1 "
+                "(item 1, 'multi-mesh serving')")
         self.devices_per_mesh = devices_per_mesh
         self.device = resolve_device(device)
         self._backend = backend

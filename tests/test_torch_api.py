@@ -205,9 +205,9 @@ def test_unported_session_parts_raise(what, item):
             "shard_ctx": lambda: sess.shard_ctx,
         }
         # ``item``: the queue item that once named the missing engine; the
-        # text now names the engine itself
+        # text now names the ROADMAP item that ports multi-device sessions
         with pytest.raises(NotImplementedError,
-                           match=r"distributed engine \(dist/\)"):
+                           match=r"ROADMAP queue 1 \(item 1, 'session"):
             calls[what]()
 
 

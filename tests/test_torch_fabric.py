@@ -334,15 +334,32 @@ def test_distributed_init_single_process_noop(monkeypatch):
 
 
 def test_distributed_init_validates_ranks_then_names_the_engine():
+    """Bad ranks raise; a valid request joins the distributed engine's
+    group (here one gloo rank, in a fresh process)."""
     with pytest.raises(ValueError):
         distributed_init(coordinator_address="127.0.0.1:9",
                          num_processes=2, process_id=5)
     with pytest.raises(ValueError):
         distributed_init(coordinator_address="127.0.0.1:9",
                          num_processes=0)
-    with pytest.raises(NotImplementedError, match=r"dist/"):
-        distributed_init(coordinator_address="127.0.0.1:9",
-                         num_processes=2, process_id=0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = ("import json, torch.distributed as dist\n"
+            "from repro_torch.api.runtime import distributed_init\n"
+            f"info = distributed_init('127.0.0.1:{port}', 1, 0, "
+            "device='cpu')\n"
+            "dist.destroy_process_group()\n"
+            "print(json.dumps(info))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    assert info == {"mode": "multi-process", "process_id": 0,
+                    "num_processes": 1, "backend": "gloo",
+                    "device": "cpu"}
 
 
 # ---------------------------------------------------------------------------

@@ -88,6 +88,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
         "  'partition': lambda: deep_mgp.partition(g, 4, cfg),\n"
         "  'cluster': lambda: coarsening.cluster(g, 10),\n"
         "  'api.partition': lambda: api.partition(g, 4, config=cfg),\n"
+        "  'dist': lambda: api.partition(g, 4, config=cfg, backend='dist'),\n"
         "  'lp_gain': lambda: gain_ops.lp_gain(g, lab, cw, 100.0),\n"
         "  'spmm': lambda: bsr_ops.spmm(g, x),\n"
         "  'embedding_bag': lambda: eb_ops.embedding_bag(idx, tab),\n"
@@ -101,6 +102,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
         "        raise SystemExit(name + ' ran without a CUDA device')\n"
         "res = api.partition(g, 4, device='cpu', config=cfg)\n"
         "assert res.feasible and res.assignment.shape == (g.n,)\n"
+        "dres = api.partition(g, 4, device='cpu', config=cfg,\n"
+        "                     backend='dist')\n"
+        "assert dres.feasible and dres.backend == 'dist'\n"
+        "assert any(r['phase'] == 'dist-coarsen' for r in dres.trace)\n"
         "part = deep_mgp.partition(g, 4, cfg, device='cpu')\n"
         "assert np.array_equal(part, res.assignment)\n"
         "gain, tgt, own = gain_ops.lp_gain(g, lab, cw, 100.0, device='cpu')\n"
@@ -169,6 +174,28 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     assert "sources are not under" in out.stderr
 
 
+def test_modules_walked_include_the_distributed_engine():
+    mods = _modules()
+    for m in ("repro_torch.dist", "repro_torch.dist.collectives",
+              "repro_torch.dist.dist_lp", "repro_torch.dist.dist_contraction",
+              "repro_torch.dist.dist_balance",
+              "repro_torch.dist.dist_partitioner",
+              "repro_torch.graphs.distribute"):
+        assert m in mods
+
+
+def test_partition_cli_with_devices_refuses_without_cuda():
+    """``--devices 2`` spawns a rank a card: without cards it exits 2 and
+    prints nothing, unless ``--device cpu`` asks for CPU ranks."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.partition",
+           "--family", "rgg2d", "--n", "300", "--k", "2", "--devices", "2"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+
+
 def test_modules_walked_include_the_fabric():
     mods = _modules()
     for m in ("repro_torch.fabric", "repro_torch.fabric.protocol",
@@ -182,15 +209,15 @@ def test_modules_walked_include_the_fabric():
 def test_fabric_worker_cli_refuses_without_cuda_and_dist():
     """The worker CLI runs on the card by default: without one it exits
     2 and prints no ready line; so does a multi-process or multi-device
-    request, which needs the distributed engine."""
+    request, whose multi-device meshes are not ported yet."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.fabric", "worker"]
     for extra, text in (([], "no CUDA device"),
                         (["--device", "cpu", "--devices-per-mesh", "2"],
-                         "(dist/)"),
+                         "ROADMAP queue 1"),
                         (["--device", "cpu", "--coordinator", "h:1",
                           "--num-processes", "2", "--process-id", "0"],
-                         "(dist/)")):
+                         "ROADMAP queue 1")):
         out = subprocess.run(cmd + extra, cwd=ROOT, env=env,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 2 and out.stdout == ""

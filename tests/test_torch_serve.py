@@ -422,7 +422,7 @@ def test_server_rejects_bad_construction(kw):
 
 def test_multi_device_meshes_raise_naming_the_distributed_item():
     with pytest.raises(NotImplementedError,
-                       match=r"distributed engine.*\(dist/\)"):
+                       match=r"ROADMAP queue 1 \(item 1, 'multi-mesh"):
         server(meshes=2, devices_per_mesh=2)
 
 
@@ -672,7 +672,7 @@ def test_serve_cli_refuses_without_cuda_and_multi_device_meshes():
     out = _serve_cli("repro_torch.launch.serve", "--device", "cpu",
                      "--devices-per-mesh", "2")
     assert out.returncode == 2 and out.stdout == ""
-    assert "(dist/)" in out.stderr
+    assert "ROADMAP queue 1" in out.stderr
 
 
 # ---------------------------------------------------------------------------
