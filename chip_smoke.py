@@ -179,6 +179,22 @@ exits non-zero if any one fails:
      its plain version (exact) and timed beside its bound (rows
      ``lp_move_dist``, ``bal_scores_dist``, ``lp_move_heavy_dist`` and,
      if the hub run launched it, ``bal_scores_heavy_dist``).
+ 11. a mesh of rank processes: ``make_mesh_1d(1)`` spawns one rank on
+     card 0 (its spawn time printed), and ``PartitionSession(devices=1,
+     mesh=..., max_workers=1).run_batch`` serves phase 10's request in
+     both memory models (``kernel="fused"``, the graph sent as arrays)
+     and phase 4's ``single`` request (in this process): the first two
+     must equal phase 10's answers (cut 5917, the assignment's sha256
+     and the trace), the third phase 4's assignment. Each mesh call's
+     seconds (send to answer) are printed beside phase 10's in-process
+     fused wall (the difference is the mesh's transfer cost) and the
+     rank's launch counts, reported back with each answer (zeroed just
+     before the batch): lp_move's distributed form, greedy_pick,
+     seg_merge and bal_scores' table form must have launched there.
+     With two cards or more the session also runs at P=2 (skipped on a
+     one-card machine). Then ``python -m repro_torch.launch.selftest
+     --devices 1 --test all kernels --n 2000`` on the card: every line
+     is printed and must pass.
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -329,6 +345,8 @@ DIST_ANCHORS = {
     )),
 }
 DIST_HUB = ("ba", 1 << 18)
+# phase 11: the port's selftest size on the card
+SELFTEST_N = 2000
 DIST_FORMS = ("lp_move_dist", "lp_move_heavy_dist", "seg_merge",
               "bal_scores_dist", "bal_scores_heavy_dist", "greedy_pick")
 # (rtol, atol) of a kernel against its plain version; the rest are exact
@@ -2918,7 +2936,8 @@ def dist_capture(torch):
 
 
 def phase_dist(torch, api, build, g):
-    """Phase 10. Returns (kernel rows, launches by path)."""
+    """Phase 10. Returns (kernel rows, launches by path, (each model's
+    fused wall, its trace seconds))."""
     import torch.distributed
 
     from repro_torch.api import runtime
@@ -2932,7 +2951,7 @@ def phase_dist(torch, api, build, g):
     pe = runtime.pe_group(1, "cuda")
     say(f"  group: backend {pe.backend}, {pe.P} rank, device {pe.device}")
     hub = api.GraphSpec(DIST_HUB[0], DIST_HUB[1], 8.0, seed=17)
-    by_path, calls = {}, {}
+    by_path, calls, walls, traces = {}, {}, {}, {}
     for model, gm, kw in [(m, g, kw) for m, kw in DIST_MODELS.items()] + \
             [("hub", hub.materialize(), DIST_MODELS["sharded"])]:
         tag = model if model != "hub" else f"{DIST_HUB[0]} {gm.n} sharded"
@@ -2948,7 +2967,9 @@ def phase_dist(torch, api, build, g):
             for name, call in (cap.inputs.items() if cap else ()):
                 if call[0] > calls.get(name, ((-1,), ""))[0][0]:
                     calls[name] = (call, tag)
-        fres, _, _, flaunch, fcoll = runs["fused"]
+        fres, fwall, _, flaunch, fcoll = runs["fused"]
+        walls[model] = fwall
+        traces[model] = phase_seconds([fres])
         cres, _, _, claunch, _ = runs["composed"]
         check(np.array_equal(fres.assignment, cres.assignment)
               and fres.cut == cres.cut and fres.feasible,
@@ -3009,7 +3030,111 @@ def phase_dist(torch, api, build, g):
         rows.append(held_and_timed(torch, name, fn, plain[name], list(args),
                                    kw, 20, sum(c[name] for c in
                                                by_path.values())))
-    return rows, by_path
+    return rows, by_path, (walls, traces)
+
+
+def mesh_batch(torch, api, mesh, g, models, single):
+    """Phase 11's batch on ``mesh``: the dist requests of ``models``
+    (fused) and the ``single`` request, in that order, through a
+    one-thread session bound to the mesh."""
+    reqs = [api.PartitionRequest(graph=g, k=16, epsilon=0.03,
+                                 preset="fast", devices=mesh.size,
+                                 backend="dist", kernel="fused",
+                                 **DIST_MODELS[m]) for m in models]
+    if single:
+        reqs.append(api.PartitionRequest(graph=g, k=16, epsilon=0.03,
+                                         preset="fast", backend="single",
+                                         kernel="fused"))
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    with api.PartitionSession(devices=mesh.size, mesh=mesh,
+                              max_workers=1) as sess:
+        out = sess.run_batch(reqs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_mesh(torch, api, g, lp_run, walls, traces):
+    """Phase 11. Returns the rank's launches over the batch."""
+    from repro_torch.dist.dist_lp import make_mesh_1d
+
+    t_phase = time.perf_counter()
+    say(f"== phase 11: a mesh of rank processes, rgg2d {g.n}, k=16, fast: "
+        "phase 10's request in both memory models and phase 4's single "
+        "request through PartitionSession(devices=1, mesh=...)")
+    t0 = time.perf_counter()
+    mesh = make_mesh_1d(1)
+    try:
+        say(f"  mesh: {mesh.size} rank on {[str(d) for d in mesh.devices]}"
+            f", pids {mesh.pids}, backend {mesh.backend}, spawn "
+            f"{time.perf_counter() - t0:.3f} s (to every rank's ready)")
+        models = list(DIST_MODELS)
+        out, wall = mesh_batch(torch, api, mesh, g, models, True)
+        launch = dict(mesh.launches[0])
+        seconds = list(zip(mesh.call_seconds, mesh.rank_seconds))
+        # the same request again on the warm rank
+        (again,), _ = mesh_batch(torch, api, mesh, g, models[:1], False)
+        seconds.append((mesh.call_seconds[0], mesh.rank_seconds[0]))
+    finally:
+        mesh.close()
+    say(f"  batch of {len(out)} requests: {wall:.3f} s")
+    for model, res, (secs, rank_s) in zip(models + models[:1],
+                                          out[:-1] + [again], seconds):
+        got = [res.cut, assignment_digest(res.assignment),
+               dist_trace(res.trace)]
+        check(got == list(DIST_ANCHORS[model]),
+              f"mesh {model}: cut {res.cut}, the assignment or the trace "
+              f"differs from phase 10's (cut {DIST_ANCHORS[model][0]})")
+        say(f"  {model}: cut {res.cut}, equals phase 10's (sha256, trace); "
+            f"mesh call {secs:.3f} s, on the rank {rank_s:.3f} s (transfer "
+            f"cost {secs - rank_s:.3f} s), request {res.time_s:.3f} s; "
+            f"phase 10's in-process fused wall {walls[model]:.3f} s "
+            f"({secs - walls[model]:+.3f} s)")
+        say(f"  {model} trace seconds on the rank "
+            f"{json.dumps(phase_seconds([res]))}, in phase 10 "
+            f"{json.dumps(traces[model])}")
+    single = out[-1]
+    check(single.backend == "single" and
+          np.array_equal(single.assignment, lp_run.assignment),
+          f"mesh session: the single request's cut {single.cut} differs "
+          f"from phase 4's {lp_run.cut}")
+    say(f"  single: cut {single.cut} in this process, equals phase 4's; "
+        f"{single.time_s:.3f} s")
+    shown = {k: v for k, v in launch.items() if v}
+    say(f"  the rank's launches over the batch {json.dumps(shown)}")
+    need = ["lp_move_dist", "greedy_pick", "seg_merge", "bal_scores_dist"]
+    check(all(launch.get(k, 0) > 0 for k in need),
+          f"mesh: a kernel of the fused path did not launch on the rank "
+          f"({need}): {shown}")
+    if torch.cuda.device_count() >= 2:
+        with make_mesh_1d(2) as mesh2:
+            (res2,), wall2 = mesh_batch(torch, api, mesh2, g, ["default"],
+                                        False)
+            l2 = mesh2.launches
+        check(res2.feasible and all(x.get("lp_move_dist", 0) > 0
+                                    for x in l2),
+              f"mesh P=2: infeasible or no kernel launched: {l2}")
+        say(f"  P=2 on two cards: cut {res2.cut}, {wall2:.3f} s")
+    else:
+        say("  P=2: one card visible, not run (P > 1 on cards is "
+            "unmeasured here)")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.selftest", "--devices",
+         "1", "--test", "all", "kernels", "--n", str(SELFTEST_N)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    for x in lines:
+        say(f"  selftest {json.dumps(x)}")
+    check(proc.returncode == 0 and lines and all(x["pass"] for x in lines),
+          f"selftest --devices 1 failed ({proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+    say(f"  selftest: {len(lines)} checks passed in "
+        f"{time.perf_counter() - t0:.1f} s; phase 11 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launch
 
 
 def hubs_only(torch, api, build) -> int:
@@ -3026,7 +3151,21 @@ def dist_only(torch, api, build) -> int:
     smi = phase_environment(torch, build)
     phase_ragged(torch, torch.device("cuda", 0))
     g = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17).materialize()
-    rows, _ = phase_dist(torch, api, build, g)
+    rows, _, _ = phase_dist(torch, api, build, g)
+    say(smi)
+    say(json.dumps({"kernels": rows}))
+    return 0
+
+
+def mesh_only(torch, api, build) -> int:
+    """``--mesh-only``: phases 1, 10 and 11, with phase 4's request run
+    once for phase 11's single request."""
+    smi = phase_environment(torch, build)
+    g = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17).materialize()
+    lp_run = run_partition(api, g, 16, "fused")
+    say(f"  phase 4's request: cut {lp_run.cut}")
+    rows, _, walls = phase_dist(torch, api, build, g)
+    phase_mesh(torch, api, g, lp_run, *walls)
     say(smi)
     say(json.dumps({"kernels": rows}))
     return 0
@@ -3043,6 +3182,9 @@ def main(argv=None) -> int:
                          "both hub graphs at 2^20 (no contract line)")
     ap.add_argument("--dist-only", action="store_true",
                     help="only build the kernels and run phases 2 and 10 "
+                         "(no contract line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only build the kernels and run phases 10 and 11 "
                          "(no contract line)")
     args = ap.parse_args(argv)
 
@@ -3069,6 +3211,8 @@ def main(argv=None) -> int:
         return hubs_only(torch, api, build)
     if args.dist_only:
         return dist_only(torch, api, build)
+    if args.mesh_only:
+        return mesh_only(torch, api, build)
     dev = torch.device("cuda", 0)
     # the plain versions' f32 products (bsr_spmm's einsum) in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3110,9 +3254,10 @@ def main(argv=None) -> int:
     hub_rows, hub_paths = phase_hubs(torch, api, build)
     by_path.update(hub_paths)
     kernels[2:2] = hub_rows
-    dist_rows, dist_paths = phase_dist(torch, api, build, g)
+    dist_rows, dist_paths, dist_walls = phase_dist(torch, api, build, g)
     by_path.update(dist_paths)
     kernels[4:4] = dist_rows
+    by_path["mesh"] = phase_mesh(torch, api, g, lp_run, *dist_walls)
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

@@ -9,7 +9,8 @@
 Backends ("single", plus the paper's baselines "plain_mgp" /
 "single_level_lp") live in a string-keyed registry;
 ``Partitioner.compare`` runs one request against several of them, and
-``PartitionSession`` serves batches of requests on one device.
+``PartitionSession`` serves batches of requests on one device, and
+distributed ones on a mesh of rank processes (``runtime.PeMesh``).
 """
 from .backends import (BackendContext, available_backends, get_backend,
                        is_batchable, register_backend, resolve_backend)

@@ -17,7 +17,10 @@ The ``dist`` backends run SPMD, one rank a PE, under an initialised
 ``Partitioner.run`` with the same request and gets the same result):
 ``api.runtime.distributed_init`` makes it, or ``launch/partition.py
 --devices P``. A one-device request with no group makes a one-rank group
-itself (NCCL on the card, gloo on the CPU). They honor the request's
+itself (NCCL on the card, gloo on the CPU). Given a mesh
+(``BackendContext.mesh``, an ``api.runtime.PeMesh`` a serving session
+owns), they send the request to the mesh's ranks instead and return its
+rank 0's answer, as the reference passes ``mesh=ctx.mesh``. They honor the request's
 distributed memory-model knobs (``contraction``, ``weights``,
 ``balance``) through ``req.resolve_config()``.
 
@@ -98,6 +101,11 @@ class BackendContext:
     # precomputed level-0 clustering labels; must be exactly what
     # core.coarsening.cluster would return for partition's level-0 call
     level0_labels: Optional[np.ndarray] = None
+    # a PeMesh of ``devices`` rank processes the dist backends run on
+    mesh: Optional[object] = None
+    # the request's GraphSpec, if it had one: a mesh sends it in place
+    # of the materialized graph's arrays
+    spec: Optional[object] = None
 
 
 def resolve_backend(req, n_graph_vertices: int) -> str:
@@ -137,6 +145,16 @@ def _dist(g: Graph, req, ctx: BackendContext,
     from ..dist.dist_partitioner import dist_partition_impl
     from .runtime import pe_group
     P = max(1, ctx.devices)
+    if ctx.mesh is not None:
+        if ctx.mesh.size != P:
+            raise ValueError(f"a request for {P} devices on a mesh of "
+                             f"{ctx.mesh.size}")
+        reply = ctx.mesh.partition(
+            dataclasses.replace(req, graph=ctx.spec or g),
+            "dist-grid" if use_grid else "dist")
+        if ctx.trace is not None:
+            ctx.trace.extend(reply.local)
+        return reply.value[0]
     return dist_partition_impl(g, req.k, P, cfg=req.resolve_config(),
                                use_grid=use_grid,
                                pe=pe_group(P, ctx.device), trace=ctx.trace)

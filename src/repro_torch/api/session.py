@@ -9,10 +9,14 @@ pure function of its fields.
 ``submit_many`` serves a same-bucket batch as one unit of work
 (``serve/batching.py::run_coalesced``): identical requests share one
 run, and with ``stack`` on distinct requests share one stacked level-0
-clustering. This port serves one device: the reference's multi-device
-sessions (a shared mesh, ``shard_ctx``) are the next item of ROADMAP
-queue 1 and raise ``NotImplementedError``; a P-device request runs
-through the ``dist`` backend under ``api.runtime.distributed_init``.
+clustering.
+
+A session of ``devices`` > 1 owns a mesh (``api.runtime.PeMesh``: one
+rank process a PE, built on the first distributed request) and sends
+every distributed request at that PE count to its ranks, one request at
+a time; everything else runs in this process, as a solo run would.
+``shard_ctx`` (the reference's handle for the model layers) arrives
+with ``dist/sharding.py`` and the models, ROADMAP queue 4.
 """
 from __future__ import annotations
 
@@ -22,15 +26,10 @@ from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, Sequence
 
-from .backends import BackendContext
+from .backends import DISTRIBUTED, BackendContext, resolve_backend
 from .partitioner import Partitioner
 from .request import GraphSpec, PartitionRequest
 from .result import PartitionResult
-
-_NO_DIST = ("multi-device sessions are not ported to repro_torch yet: they "
-            "are the next item of ROADMAP queue 1 (item 1, 'session "
-            "devices > 1'); a P-device request runs through the dist "
-            "backend under api.runtime.distributed_init")
 
 
 class BucketCache:
@@ -85,11 +84,11 @@ class PartitionSession:
     Parameters
     ----------
     devices:
-        PE count; only 1 is ported (more raises ``NotImplementedError``,
-        naming ROADMAP queue 1).
-        A request's own ``devices`` field still resolves as a solo run
-        would, so one the ``auto`` policy sends to a distributed backend
-        raises from its future.
+        PE count the session's mesh is built for (once, lazily, on the
+        first distributed request at that count). Requests keep their
+        own ``devices`` field: one at another count runs as a solo
+        ``Partitioner.run`` would (so a distributed one raises from its
+        future unless this process belongs to a group of that size).
     backend:
         Optional registry name replacing each request's ``"auto"`` hint.
     max_workers:
@@ -97,7 +96,11 @@ class PartitionSession:
         generation and the numpy phases overlap; device work runs on the
         device's current stream, so a small pool is plenty.
     mesh:
-        The reference's pre-built device mesh; not ported (raises).
+        Optional pre-built ``PeMesh`` of exactly ``devices`` ranks (the
+        serving tier binds one per worker); it stays its builder's to
+        close. Without it a session of ``devices`` > 1 builds its own
+        over the first ``devices`` cards (or CPU ranks for
+        ``device="cpu"``) and closes it with the session.
     graph_cache:
         Optional externally owned ``GraphSpec -> Graph`` mapping; when
         omitted, the session owns a :class:`BucketCache` bounded at
@@ -126,10 +129,10 @@ class PartitionSession:
                  device=None):
         if devices < 1:
             raise ValueError(f"devices must be >= 1, got {devices}")
-        if devices > 1 or mesh is not None:
-            raise NotImplementedError(
-                f"PartitionSession(devices={devices}, mesh={mesh!r}): "
-                f"{_NO_DIST}")
+        if mesh is not None and getattr(mesh, "size", None) != devices:
+            raise ValueError(
+                f"mesh must be a PeMesh of exactly {devices} rank(s), got "
+                f"{mesh!r}")
         if stack not in ("auto", "on", "off"):
             raise ValueError(
                 f"stack must be 'auto', 'on' or 'off', got {stack!r}")
@@ -142,6 +145,9 @@ class PartitionSession:
         self._graph_cache_lock = graph_cache_lock if \
             graph_cache_lock is not None else threading.Lock()
         self._lock = threading.Lock()
+        self._mesh = mesh
+        self._mesh_lock = threading.Lock()     # held through a spawn
+        self._owns_mesh = False
         self._served = 0
         self._total_time_s = 0.0
         self._closed = False
@@ -152,14 +158,26 @@ class PartitionSession:
 
     @property
     def mesh(self):
-        """The session's device mesh: ``None`` for a single-device
-        session, the only kind ported."""
-        return None
+        """The session's ``PeMesh``: the one it was given, else built on
+        first use for ``devices`` > 1; ``None`` for a single-device
+        session without one."""
+        with self._mesh_lock:
+            if self._mesh is None and self.devices > 1:
+                if self._closed:
+                    raise RuntimeError("session is closed")
+                from ..dist.dist_lp import make_mesh_1d
+                self._mesh = make_mesh_1d(self.devices, self.device)
+                self._owns_mesh = True
+            return self._mesh
 
     @property
     def shard_ctx(self):
-        """The reference's sharding context over the session mesh."""
-        raise NotImplementedError(f"PartitionSession.shard_ctx: {_NO_DIST}")
+        """The reference's sharding context over the session mesh, the
+        model layers' handle."""
+        raise NotImplementedError(
+            "PartitionSession.shard_ctx: the sharding rules of the model "
+            "layers (dist/sharding.py) are not ported to repro_torch yet; "
+            "they arrive with the models, ROADMAP queue 4")
 
     @property
     def device(self):
@@ -185,11 +203,20 @@ class PartitionSession:
                  level0_labels=None) -> PartitionResult:
         """One request as a solo run; ``level0_labels``, when given,
         replaces its level-0 clustering (the serving tier's stacked
-        labels, bit-identical to what that call returns)."""
+        labels, bit-identical to what that call returns). A distributed
+        request at the session's PE count goes to the mesh."""
+        spec = req.graph if isinstance(req.graph, GraphSpec) else None
+        eff = req
+        if self._engine.backend is not None and req.backend == "auto":
+            eff = dataclasses.replace(req, backend=self._engine.backend)
+        mesh = None
+        if resolve_backend(eff, req.graph.n) in DISTRIBUTED and \
+                req.devices == self.devices:
+            mesh = self.mesh
         req = self._resolve_graph(req)
         res = self._engine.run(req, _ctx=BackendContext(
             device=self.device, devices=req.devices,
-            level0_labels=level0_labels))
+            level0_labels=level0_labels, mesh=mesh, spec=spec))
         with self._lock:
             self._served += 1
             self._total_time_s += res.time_s
@@ -258,10 +285,14 @@ class PartitionSession:
     def close(self, wait: bool = True) -> None:
         """``wait=False`` abandons in-flight work. ``_closed`` flips under
         the lock ``submit`` holds; the pool shuts down outside it (running
-        requests take the lock for stats)."""
+        requests take the lock for stats). A mesh the session built is
+        closed with it (killed, if a request still runs there)."""
         with self._lock:
             self._closed = True
         self._pool.shutdown(wait=wait)
+        with self._mesh_lock:
+            if self._owns_mesh:
+                self._mesh.close()
 
     def __enter__(self) -> "PartitionSession":
         return self

@@ -8,8 +8,10 @@ and returns the same result.
 
 Nothing here initialises a process group at import; the engine functions
 take a ``PeGroup`` (or the initialised default group's, see
-``api.runtime.distributed_init``). The reference's ``sharding`` module
-(named-axis rules for the model layers) is not ported yet.
+``api.runtime.distributed_init``); ``dist_lp.make_mesh_1d`` spawns a
+mesh of rank processes that runs them for a serving process. The
+reference's ``sharding`` module (named-axis rules for the model layers)
+comes with the models (ROADMAP queue 4).
 """
 from .collectives import PeGroup, grid_factors, world_group
 

@@ -77,6 +77,14 @@ def _check_int32_weights(shards: GraphShards) -> None:
             "be < 2^31 for the int32 device path")
 
 
+def make_mesh_1d(P: int, device=None):
+    """A 1-D mesh of P PEs (``api.runtime.PeMesh``), one rank process
+    each: the first P cards, or P gloo ranks for ``device="cpu"``. The
+    engine's functions run on it through ``PeMesh.call``."""
+    from ..api.runtime import PeMesh, mesh_devices
+    return PeMesh(mesh_devices(P, device))
+
+
 def resolve_pe(pe, P: int) -> PeGroup:
     """Accept a caller's ``PeGroup`` or take the initialised default
     group's; either way it must have P ranks."""

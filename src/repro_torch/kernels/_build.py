@@ -22,11 +22,16 @@ admission, the ghost label table) apart from the single-device ones.
 Building, loading and counting are safe under threads (a session runs
 requests on a thread pool): one lock spans ``load``'s check, build and
 ``CDLL`` and all of ``build_all``, so concurrent first loads compile a
-library once; temporary build files are named by process and thread.
+library once. Across processes (a mesh's ranks load the libraries at
+once) the compile runs under an exclusive lock on ``build/.lock`` too,
+and a library another process built meanwhile is not built again;
+temporary build files are named by process and thread.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -98,9 +103,27 @@ def build_all(names=SOURCES) -> float:
         return _build_all(names)
 
 
+@contextlib.contextmanager
+def _across_processes():
+    with open(BUILD_DIR / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _build_all(names) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if all(_target(name).exists() for name in names):
+        return time.perf_counter() - t0
+    with _across_processes():
+        _compile(names)
+    return time.perf_counter() - t0
+
+
+def _compile(names) -> None:
     nvcc = None
     procs = []
     for name in names:
@@ -124,7 +147,6 @@ def _build_all(names) -> float:
                           + out.with_suffix(".log").read_text())
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 def build_log(name: str) -> Optional[str]:

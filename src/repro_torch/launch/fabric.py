@@ -7,6 +7,10 @@
   # the card; --device cpu runs one on the CPU on purpose)
   python -m repro_torch.launch.fabric worker --frontdoor 127.0.0.1:7070 \
       --meshes 1
+  # a worker of P-card meshes (one rank process a card; with --device
+  # cpu, P CPU ranks): it registers devices=P
+  python -m repro_torch.launch.fabric worker --frontdoor 127.0.0.1:7070 \
+      --meshes 1 --devices-per-mesh 2
 
   # anywhere: fleet status as JSON
   python -m repro_torch.launch.fabric status --frontdoor 127.0.0.1:7070
@@ -20,10 +24,10 @@ in-flight work finishes, queued tickets resolve ``server_closed``.
 A worker takes ``--coordinator host:port --num-processes N
 --process-id I`` (or the ``REPRO_COORDINATOR`` etc. environment
 variables) for ``repro_torch.api.runtime.distributed_init``: one process
-is a no-op. A worker of more processes serves multi-device meshes, which
-are not ported yet (ROADMAP queue 1, item 1: multi-mesh serving and the
-fabric's ``devices_per_mesh > 1``): it exits 2, as ``--devices-per-mesh``
-above 1 does.
+is a no-op. A worker that joins such a group of several processes (a
+server spanning hosts) is not ported yet (ROADMAP queue 1, item 5): it
+exits 2. Its meshes need no group of its own: ``--devices-per-mesh P``
+spawns the ranks of each mesh.
 """
 
 from __future__ import annotations
@@ -85,10 +89,11 @@ def _run_worker(args) -> int:
     procs = args.num_processes or int(
         os.environ.get("REPRO_NUM_PROCESSES") or 1)
     if procs > 1:
-        print(f"fabric worker: a worker of {procs} processes serves "
-              "multi-device meshes, which are not ported to repro_torch "
-              "yet (ROADMAP queue 1, item 1: multi-mesh serving and the "
-              "fabric's devices_per_mesh > 1)", file=sys.stderr)
+        print(f"fabric worker: a worker that joins a group of {procs} "
+              "processes (one server across hosts) is not ported to "
+              "repro_torch yet (ROADMAP queue 1, item 5); "
+              "--devices-per-mesh P spawns a worker's meshes itself",
+              file=sys.stderr)
         return 2
     try:
         # the multi-process group first (a no-op for one process)
@@ -101,12 +106,12 @@ def _run_worker(args) -> int:
             devices_per_mesh=args.devices_per_mesh, backend=args.backend,
             heartbeat_s=args.heartbeat_s, max_queue=args.max_queue,
             device=args.device)
-    except NotImplementedError as exc:
-        print(f"fabric worker: {exc}", file=sys.stderr)
-        return 2
     except NoCudaDevice as exc:
         print(f"fabric worker: no CUDA device ({exc}); pass --device cpu "
               "to run on the CPU", file=sys.stderr)
+        return 2
+    except RuntimeError as exc:     # too few cards, a mesh's start
+        print(f"fabric worker: {exc}", file=sys.stderr)
         return 2
     worker.install_signal_handlers()
     _ready("worker", server_id=worker.server_id, host=worker.host,

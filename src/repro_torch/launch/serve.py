@@ -3,17 +3,20 @@ package's ``launch/serve.py`` flag for flag, plus ``--device``).
 
   python -m repro_torch.launch.serve --meshes 2 --requests 12 --n 4000 \\
       --k 8 --verify
+  python -m repro_torch.launch.serve --meshes 2 --devices-per-mesh 2 ...
   python -m repro_torch.launch.serve ... --offered-rate 8   # paced
   python -m repro_torch.launch.serve ... --device cpu
 
-Generates a mixed request set (three sizes, two k values), serves it
+Generates a mixed request set (three sizes, two k values, single-device
+and, with meshes of several devices, distributed requests), serves it
 through the admission queue on the CUDA device unless ``--device`` names
 another, prints one JSON summary line per result and a final stats
-line. ``--verify`` re-runs every request solo through
-``repro_torch.api.Partitioner`` on the same device and asserts
-bit-identical assignments. Exit 0 iff every request succeeded (and
-verified). ``--devices-per-mesh`` above 1 (multi-device meshes, not
-ported yet: ROADMAP queue 1) exits 2.
+line. ``--devices-per-mesh P`` gives every worker a mesh of P rank
+processes, one a card (``--device cpu``: P CPU ranks); without enough
+cards it exits 2 and says so. ``--verify`` re-runs every request solo
+(``repro_torch.api.Partitioner``, or a session of its PE count for a
+distributed one) on the same device and asserts bit-identical
+assignments. Exit 0 iff every request succeeded (and verified).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import time
 
 def build_requests(args):
     """A deterministic mixed workload: three sizes, two k values, five
-    graph seeds (the reference CLI's, single-device)."""
+    graph seeds, every fourth request distributed over a whole mesh when
+    the meshes have several devices (the reference CLI's)."""
     from repro_torch.api import GraphSpec, PartitionRequest
     from repro_torch.core.deep_mgp import PartitionerConfig
 
@@ -35,9 +39,10 @@ def build_requests(args):
     for i in range(args.requests):
         n = args.n // 2 * (1 + i % 3)           # n/2, n, 3n/2
         k = args.k * (1 + i % 2)                # k, 2k
+        devices = args.devices_per_mesh if i % 4 == 3 else 1
         reqs.append(PartitionRequest(
             graph=GraphSpec(args.family, n, 8.0, seed=11 + i % 5),
-            k=k, config=cfg, collect_trace=False))
+            k=k, config=cfg, devices=devices, collect_trace=False))
     return reqs
 
 
@@ -69,12 +74,12 @@ def main(argv=None) -> int:
         srv = PartitionServer(meshes=args.meshes,
                               devices_per_mesh=args.devices_per_mesh,
                               device=args.device)
-    except NotImplementedError as exc:
-        print(f"serve: {exc}", file=sys.stderr)
-        return 2
     except NoCudaDevice as exc:
         print(f"serve: no CUDA device ({exc}); pass --device cpu to run "
               "on the CPU", file=sys.stderr)
+        return 2
+    except RuntimeError as exc:     # too few cards, a mesh's start
+        print(f"serve: {exc}", file=sys.stderr)
         return 2
     with srv:
         futures = []
@@ -94,16 +99,24 @@ def main(argv=None) -> int:
     if args.verify:
         import numpy as np
 
-        from repro_torch.api import Partitioner
+        from repro_torch.api import Partitioner, PartitionSession
         engine = Partitioner(device=args.device)
+        mesh_solo = None
         for r, req in zip(results, reqs):
             if not r.ok:
                 continue
-            solo = engine.run(req)
+            if req.devices > 1:     # alone on a mesh of its own
+                mesh_solo = mesh_solo or PartitionSession(
+                    devices=req.devices, max_workers=1, device=args.device)
+                solo = mesh_solo.submit(req).result()
+            else:
+                solo = engine.run(req)
             if not np.array_equal(r.result.assignment, solo.assignment):
                 print(json.dumps({"verify": "MISMATCH",
                                   "k": req.k, "n": req.graph.n}))
                 ok = False
+        if mesh_solo is not None:
+            mesh_solo.close()
         print(json.dumps({"verify": "bit-identical" if ok else "failed"}))
 
     stats["wall_s"] = round(wall, 3)

@@ -1,18 +1,20 @@
-"""Partition server: queued serving over single-device workers — the JAX
-package's ``serve/server.py`` on torch, for ``devices_per_mesh == 1``.
+"""Partition server: queued serving over device-mesh workers — the JAX
+package's ``serve/server.py`` on torch.
 
 ``PartitionServer`` is the traffic-shaped layer above the facade
 (saxml-style: an admission queue feeding several independent workers).
-It owns N *workers*, each a single-thread ``PartitionSession`` on the
-server's torch device (with several workers on one card, they share it
-and its current stream); a priority admission queue with per-request
+It owns N *workers*, each a single-thread ``PartitionSession``: with
+``devices_per_mesh == 1`` on the server's torch device (with several
+workers on one card, they share it and its current stream), above 1
+bound to its own mesh of rank processes (``api.runtime.PeMesh``) over a
+disjoint slice of the cards (``device_slices``), or of CPU ranks for
+``device="cpu"``; a priority admission queue with per-request
 deadlines; a dispatcher that routes each request to the best-fitting
 worker (``serve.scheduler``, reusing the ``auto`` policy's
 ``required_devices``); a ``GraphSpec`` cache shared across all workers;
 and supervision — a failed or timed-out attempt is retried once on
 another worker, then surfaced as a structured :class:`ServeResult`
-error. Multi-device meshes (``devices_per_mesh > 1``) are not ported
-yet (ROADMAP queue 1, after multi-device sessions) and raise.
+error. A worker whose mesh lost a rank is retired.
 
 Results are bit-identical to solo ``Partitioner.run`` for the same
 request: workers run the unmodified facade, and every request is a pure
@@ -30,6 +32,7 @@ from queue import SimpleQueue
 from typing import Any, Dict, Iterable, List, Optional
 
 from ..api.backends import required_devices
+from ..api.runtime import device_slices, spawn_meshes
 from ..api.session import BucketCache, PartitionSession
 from ..kernels.dispatch import resolve_device
 from .metrics import ServeMetrics
@@ -85,9 +88,9 @@ class ServeResult:
 
 class _Worker:
     """One worker: a dedicated single-thread ``PartitionSession`` (the
-    executor) on the server's device plus a supervisor loop (this
-    thread) that enforces per-attempt timeouts and reports failures back
-    to the server.
+    executor) on the server's device, bound to the worker's mesh when it
+    has one, plus a supervisor loop (this thread) that enforces
+    per-attempt timeouts and reports failures back to the server.
 
     ``hold()`` / ``release()`` gate the loop before each attempt — the
     supervision hook the tests use to kill a worker while it provably
@@ -98,17 +101,20 @@ class _Worker:
         self,
         wid: int,
         devices: int,
+        mesh,
         backend: Optional[str],
         server: "PartitionServer",
     ):
         self.wid = wid
         self.devices = devices
+        self.mesh = mesh
         self.alive = True
         self.inflight = 0  # guarded by server._cap_cond
         self.session = PartitionSession(
             devices=devices,
             backend=backend,
             max_workers=1,
+            mesh=mesh,
             graph_cache=server._graph_cache,
             graph_cache_lock=server._graph_cache_lock,
             stack=server._stack,
@@ -133,6 +139,15 @@ class _Worker:
 
     def release(self) -> None:
         self._gate.set()
+
+    def _failed(self, exc: Exception) -> str:
+        """An attempt's failure as data; a mesh that lost a rank (or was
+        killed) retires its worker."""
+        detail = f"{type(exc).__name__}: {exc}"
+        if self.mesh is not None and not self.mesh.alive:
+            self.alive = False
+            detail += " (mesh retired)"
+        return detail
 
     def _loop(self) -> None:
         while True:
@@ -202,9 +217,7 @@ class _Worker:
             )
             return
         except Exception as exc:  # any failure must become data
-            srv._attempt_failed(
-                ticket, self.wid, f"{type(exc).__name__}: {exc}"
-            )
+            srv._attempt_failed(ticket, self.wid, self._failed(exc))
             return
         srv._resolve_ok(ticket, res, self.wid)
 
@@ -287,10 +300,9 @@ class _Worker:
                 )
             return
         except Exception as exc:  # any failure must become data
+            detail = self._failed(exc)
             for t in live:
-                srv._attempt_failed(
-                    t, self.wid, f"{type(exc).__name__}: {exc}"
-                )
+                srv._attempt_failed(t, self.wid, detail)
             return
         from .batching import distinct_count
 
@@ -344,12 +356,13 @@ class PartitionServer:
     Parameters
     ----------
     meshes:
-        Number of workers, each a single-device session on ``device``
-        (several workers share one card).
+        Number of workers. With one device a mesh, each is a session on
+        ``device`` (several workers share one card).
     devices_per_mesh:
-        PE count of every worker; only 1 is ported (more raises
-        ``NotImplementedError``: multi-device meshes follow multi-device
-        sessions in ROADMAP queue 1).
+        PE count of every worker. Above 1, the server carves
+        ``device_slices(meshes, devices_per_mesh)`` (raising without
+        enough cards; it never shrinks to CPU ranks) and spawns one
+        ``PeMesh`` a slice; ``device="cpu"`` makes CPU (gloo) ranks.
     backend:
         Optional registry name replacing each request's ``"auto"``.
     max_queue:
@@ -416,12 +429,6 @@ class PartitionServer:
             raise ValueError(
                 f"batch_window_ms must be >= 0, got {batch_window_ms}"
             )
-        if devices_per_mesh > 1:
-            raise NotImplementedError(
-                f"PartitionServer(devices_per_mesh={devices_per_mesh}): "
-                "multi-device meshes are not ported to repro_torch yet: "
-                "they follow multi-device sessions in ROADMAP queue 1 "
-                "(item 1, 'multi-mesh serving')")
         self.devices_per_mesh = devices_per_mesh
         self.device = resolve_device(device)
         self._backend = backend
@@ -432,8 +439,16 @@ class PartitionServer:
         self._stack = stack
         self._graph_cache = BucketCache(graph_cache_size)
         self._graph_cache_lock = threading.Lock()
+        mesh_objs = [None] * meshes
+        if devices_per_mesh > 1:
+            # disjoint device slices, one mesh of rank processes each
+            if self.device.type == "cpu":
+                slices = [[self.device] * devices_per_mesh] * meshes
+            else:
+                slices = device_slices(meshes, devices_per_mesh)
+            mesh_objs = spawn_meshes(slices)
         self._workers = [
-            _Worker(i, devices_per_mesh, backend, self)
+            _Worker(i, devices_per_mesh, mesh_objs[i], backend, self)
             for i in range(meshes)
         ]
         self._queue = AdmissionQueue(capacity=max_queue)
@@ -758,11 +773,15 @@ class PartitionServer:
         """Take worker ``wid`` out of rotation. Attempts it still owns
         (and any it would have started) fail over to other meshes via
         the normal retry path — takes effect before the worker's next
-        attempt starts; it cannot interrupt a running attempt."""
+        attempt starts. A single-device worker cannot be interrupted
+        mid-attempt; a mesh worker's ranks are killed, which fails its
+        running attempt over at once."""
         w = self._workers[wid]
         with self._cap_cond:
             w.alive = False
             self._cap_cond.notify_all()
+        if w.mesh is not None:
+            w.mesh.kill()
         w.release()  # free a held worker so its ticket can fail over
 
     # -- lifecycle -----------------------------------------------------
@@ -790,6 +809,8 @@ class PartitionServer:
                     w.thread.join(timeout=30.0)
         for w in self._workers:
             w.session.close(wait=wait and w.alive)
+            if w.mesh is not None:
+                w.mesh.close()
 
     def __enter__(self) -> "PartitionServer":
         return self

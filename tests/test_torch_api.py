@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_dist_jobs
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -197,18 +198,47 @@ def test_session_validates_and_rejects_after_close():
 
 @pytest.mark.parametrize("what,item", [("devices", 5), ("mesh", 5),
                                        ("shard_ctx", 5)])
-def test_unported_session_parts_raise(what, item):
-    with api.PartitionSession(device=CPU) as sess:
-        calls = {
-            "devices": lambda: api.PartitionSession(devices=2, device=CPU),
-            "mesh": lambda: api.PartitionSession(mesh=object(), device=CPU),
-            "shard_ctx": lambda: sess.shard_ctx,
-        }
-        # ``item``: the queue item that once named the missing engine; the
-        # text now names the ROADMAP item that ports multi-device sessions
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1 \(item 1, 'session"):
-            calls[what]()
+def test_unported_session_parts_raise(what, item, monkeypatch):
+    """The session's multi-device parts, once refused: ``devices=2``
+    now serves a distributed request on a mesh of two CPU ranks (the
+    known P=2 cut of rgg2d 1500 seed 3, k=8, C=32) and a single one in
+    this process, ``mesh=`` is held to the session's PE count, and
+    ``shard_ctx`` (``item``: the queue it waits in is now 4, with the
+    models) still raises."""
+    with torch_dist_jobs.time_limit(240):      # spawns mesh ranks
+        if what == "devices":
+            monkeypatch.setenv("OMP_NUM_THREADS", "1")
+            cfg = PartitionerConfig(contraction_limit=32)
+            spec = api.GraphSpec("rgg2d", 1500, 8.0, seed=3)
+            reqs = [api.PartitionRequest(graph=spec, k=8, devices=2,
+                                         backend=b, config=cfg)
+                    for b in ("dist", "single")]
+            with api.PartitionSession(devices=2, device=CPU) as sess:
+                dres, sres = sess.run_batch(reqs)
+                mesh = sess.mesh
+                assert mesh.size == 2 and mesh.backend == "gloo"
+                assert mesh.calls == 1
+            assert (dres.backend, dres.cut, dres.feasible) == \
+                ("dist", 320, True)
+            solo = api.Partitioner(device=CPU).run(reqs[1])
+            assert np.array_equal(sres.assignment, solo.assignment)
+            assert not mesh.alive
+            assert all(p.exitcode is not None for p in mesh._procs)
+        elif what == "mesh":
+            for devices, size in ((3, 2), (1, 2), (2, None)):
+                mesh = types.SimpleNamespace(size=size)
+                with pytest.raises(ValueError, match="PeMesh of exactly"):
+                    api.PartitionSession(devices=devices, device=CPU,
+                                         mesh=mesh)
+            given = types.SimpleNamespace(size=2)
+            with api.PartitionSession(devices=2, mesh=given,
+                                      device=CPU) as sess:
+                assert sess.mesh is given       # used as it is, left open
+        else:
+            with api.PartitionSession(device=CPU) as sess:
+                with pytest.raises(NotImplementedError,
+                                   match=r"ROADMAP queue 4"):
+                    sess.shard_ctx
 
 
 def _cli(module, *extra):

@@ -208,17 +208,57 @@ def test_modules_walked_include_the_fabric():
 
 def test_fabric_worker_cli_refuses_without_cuda_and_dist():
     """The worker CLI runs on the card by default: without one it exits
-    2 and prints no ready line; so does a multi-process or multi-device
-    request, whose multi-device meshes are not ported yet."""
+    2 and prints no ready line, with meshes of one or two cards alike;
+    so does a worker that joins a group of several processes, which is
+    not ported yet."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.fabric", "worker"]
     for extra, text in (([], "no CUDA device"),
-                        (["--device", "cpu", "--devices-per-mesh", "2"],
-                         "ROADMAP queue 1"),
+                        (["--devices-per-mesh", "2"], "no CUDA device"),
                         (["--device", "cpu", "--coordinator", "h:1",
                           "--num-processes", "2", "--process-id", "0"],
-                         "ROADMAP queue 1")):
+                         "ROADMAP queue 1, item 5")):
         out = subprocess.run(cmd + extra, cwd=ROOT, env=env,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 2 and out.stdout == ""
         assert text in out.stderr
+
+
+def test_modules_walked_include_the_mesh_tier():
+    mods = _modules()
+    for m in ("repro_torch.launch.selftest", "repro_torch.api.runtime",
+              "repro_torch.serve.server", "repro_torch.dist.dist_lp"):
+        assert m in mods
+
+
+def test_a_mesh_rank_loads_no_jax_and_no_reference():
+    """The rank entry point (``api.runtime._mesh_rank``, spawned) and
+    the engine it runs import nothing of JAX or the JAX package; a card
+    mesh without a card raises before spawning anything."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import torch_dist_jobs\n"
+        "from repro_torch.api import runtime\n"
+        "from repro_torch.dist.dist_lp import make_mesh_1d\n"
+        "from repro_torch.launch import selftest\n"
+        "def main():\n"
+        "    try:\n"
+        "        make_mesh_1d(2)\n"
+        "    except RuntimeError as exc:\n"
+        "        assert \"device='cpu'\" in str(exc), exc\n"
+        "    else:\n"
+        "        raise SystemExit('a card mesh without cards')\n"
+        "    with make_mesh_1d(2, 'cpu') as mesh:\n"
+        "        rep = mesh.call(torch_dist_jobs.loaded_reference_modules)\n"
+        "        out = mesh.call(selftest._rank_collectives,\n"
+        "                        selftest.np.zeros((2, 2, 3), 'int32'))\n"
+        "    assert rep.value == [], rep.value\n"
+        "    assert out.value['direct'].shape == (2, 2, 3)\n"
+        "    assert 'jax' not in sys.modules\n"
+        "    print('ok')\n"
+        "if __name__ == '__main__':\n"
+        "    main()\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip().endswith("ok")

@@ -5,8 +5,8 @@ queue and the metrics as pure functions on the same inputs through both
 packages; ``PartitionServer`` bit-identical to solo runs of both
 packages under concurrency, batching and coalescing; its failure paths
 (worker exception and retry, deadline, kill, overload, close), the
-quality downgrade at admission, what it does not port
-(``devices_per_mesh > 1``) and its CUDA default; the serve CLI against
+quality downgrade at admission, a server of two-rank CPU meshes
+(``devices_per_mesh=2``) and its CUDA default; the serve CLI against
 the reference CLI. Workers are single-device sessions on the CPU here
 (``device="cpu"``); the ``gpu`` test serves a batch on the card.
 """
@@ -24,6 +24,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch_dist_jobs
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -420,10 +421,39 @@ def test_server_rejects_bad_construction(kw):
         server(**kw)
 
 
-def test_multi_device_meshes_raise_naming_the_distributed_item():
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 \(item 1, 'multi-mesh"):
-        server(meshes=2, devices_per_mesh=2)
+def test_multi_device_meshes_raise_naming_the_distributed_item(
+        monkeypatch):
+    """Once refused; now a 2x2 CPU server serves a distributed request
+    on one of its two meshes (its solo answer, the same on a session's
+    mesh) and a single one beside it, and stops every rank at close.
+    The card default with too few cards raises, naming the carve."""
+    with torch_dist_jobs.time_limit(240):      # spawns mesh ranks
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        cfg = carry.config_from_dict(dataclasses.asdict(REF_CFG))
+        spec = api.GraphSpec("rgg2d", 1200, 8.0, seed=5)
+        dist_req = api.PartitionRequest(graph=spec, k=4, devices=2,
+                                        backend="dist", config=cfg)
+        single = api.PartitionRequest(graph=spec, k=4, config=cfg)
+        with server(meshes=2, devices_per_mesh=2) as srv:
+            meshes = [w.mesh for w in srv.workers]
+            got = srv.serve([dist_req, single])
+            st = srv.stats()
+        assert [m.size for m in meshes] == [2, 2]
+        assert all(not m.alive for m in meshes)
+        assert all(p.exitcode is not None
+                   for m in meshes for p in m._procs)
+        assert all(r.ok for r in got) and st["devices_per_mesh"] == 2
+        assert [r.result.backend for r in got] == ["dist", "single"]
+        assert sum(m.calls for m in meshes) == 1
+        with api.PartitionSession(devices=2, device=CPU) as sess:
+            want = sess.submit(dist_req).result()
+        assert np.array_equal(got[0].result.assignment, want.assignment)
+        solo = api.Partitioner(device=CPU).run(single)
+        assert np.array_equal(got[1].result.assignment, solo.assignment)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="cannot carve 2 slice"):
+            PartitionServer(meshes=2, devices_per_mesh=2)
 
 
 def test_server_runs_on_cuda_by_default(monkeypatch):
@@ -665,14 +695,26 @@ def test_serve_cli_matches_reference_cli():
         assert got[7]["stats"][key] == want[7]["stats"][key]
 
 
-def test_serve_cli_refuses_without_cuda_and_multi_device_meshes():
-    out = _serve_cli("repro_torch.launch.serve")
-    assert out.returncode == 2 and out.stdout == ""
-    assert "no CUDA device" in out.stderr
-    out = _serve_cli("repro_torch.launch.serve", "--device", "cpu",
-                     "--devices-per-mesh", "2")
-    assert out.returncode == 2 and out.stdout == ""
-    assert "ROADMAP queue 1" in out.stderr
+def test_serve_cli_refuses_without_cuda_and_multi_device_meshes(
+        monkeypatch, capsys):
+    """Without a card the CLI exits 2 and says why, for one-device and
+    two-device meshes alike: it never serves on CPU ranks unasked (it
+    does with ``--device cpu``: ``test_torch_dist_serving.py``). With
+    too few cards it exits 2 with the carve's own message, not as if
+    there were no card."""
+    for extra in ((), ("--devices-per-mesh", "2")):
+        out = _serve_cli("repro_torch.launch.serve", *extra)
+        assert out.returncode == 2 and out.stdout == ""
+        assert "no CUDA device" in out.stderr
+        assert "--device cpu" in out.stderr
+    from repro_torch.launch import serve as serve_cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert serve_cli.main(["--meshes", "2", "--devices-per-mesh", "2",
+                           "--requests", "1"]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "cannot carve 2 slice" in out.err
+    assert "no CUDA device" not in out.err
 
 
 # ---------------------------------------------------------------------------

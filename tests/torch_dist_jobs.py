@@ -23,9 +23,19 @@ each; every P's group at once), each of which joins its group through
 ``repro_torch.api.runtime.distributed_init`` and runs that P's jobs in
 order. Results come from rank 0, with ``same_on_every_rank`` recording
 that every rank returned the same bytes.
+
+The ``session`` and ``server`` kinds serve a mix of requests (``reqs``:
+dicts of a graph, ``as`` "spec" or "graph", ``k``, ``devices``,
+``backend``, ``config`` and further request fields) through the package's
+own ``PartitionSession(devices=P)`` (a ``run_batch``) or
+``PartitionServer(meshes=2, devices_per_mesh=P)``. They run in the
+script's own process: the reference's on its forced host devices, the
+port's on meshes of gloo rank processes that its session and server
+spawn themselves.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -151,6 +161,8 @@ def _run(job, pkg, pe=None, shard_map=None):
     gen = importlib.import_module(f"{pkg}.graphs.generators")
     distribute = importlib.import_module(f"{pkg}.graphs.distribute")
     kind, P = job["kind"], job["P"]
+    if kind in ("session", "server"):
+        return _serve_mix(job, pkg)
     g = gen.make(*job["graph"])
     # the reference builds its mesh itself; the port takes its group
     dkw = {} if pe is None else {"pe": pe}
@@ -232,9 +244,111 @@ def _run_partition(job, pkg, g, pe):
             "trace": [_strip(r) for r in res.trace]}
 
 
+def build_requests(pkg, reqs, kernel="composed"):
+    """The ``reqs`` of a serving job as ``pkg``'s requests."""
+    import importlib
+    api = importlib.import_module(f"{pkg}.api")
+    gen = importlib.import_module(f"{pkg}.graphs.generators")
+    dp = importlib.import_module(f"{pkg}.core.deep_mgp")
+    out = []
+    for d in reqs:
+        graph = api.GraphSpec(*d["graph"]) if d["as"] == "spec" \
+            else gen.make(*d["graph"])
+        cfg = dp.PartitionerConfig(**dict(d["config"], kernel=kernel))
+        out.append(api.PartitionRequest(
+            graph=graph, k=d["k"], devices=d["devices"],
+            backend=d.get("backend", "auto"), config=cfg,
+            **d.get("request", {})))
+    return out
+
+
+def served(res):
+    """A served ``PartitionResult`` as the serving tests compare it."""
+    summary = res.summary()
+    summary.pop("time_s")
+    return {"part": res.assignment, "cut": res.cut,
+            "feasible": res.feasible, "backend": res.backend,
+            "summary": summary, "trace": [_strip(r) for r in res.trace]}
+
+
+def _serve_mix(job, pkg):
+    import importlib
+    P = job["P"]
+    port = pkg == "repro_torch"
+    kw = {"device": "cpu"} if port else {}
+    reqs = build_requests(pkg, job["reqs"],
+                          job.get("kernel", "composed") if port
+                          else "composed")
+    if job["kind"] == "session":
+        api = importlib.import_module(f"{pkg}.api")
+        with api.PartitionSession(devices=P, max_workers=4, **kw) as sess:
+            res = sess.run_batch(reqs)
+            out = {"results": [served(r) for r in res]}
+            if port:
+                out["mesh_calls"] = sess.mesh.calls
+        return out
+    serve = importlib.import_module(f"{pkg}.serve")
+    with serve.PartitionServer(meshes=2, devices_per_mesh=P, **kw) as srv:
+        res = srv.serve(reqs)
+        st = srv.stats()
+        calls = [w.mesh.calls for w in srv.workers] if port else None
+    return {"results": [served(r.result) if r.ok else
+                        {"error": r.error, "detail": r.detail}
+                        for r in res],
+            "per_worker_served": st["per_worker_served"],
+            "mesh_calls": calls}
+
+
+@contextlib.contextmanager
+def time_limit(seconds):
+    """Hold a test's block to ``seconds``. Past them a watchdog SIGKILLs
+    this process's ``multiprocessing`` children (mesh ranks) and the
+    ``subprocess.Popen``s added to the yielded list, which ends every
+    wait on them at once (a mesh's owner waits on its ranks' process
+    sentinels, a reader on a pipe sees its end), and the test fails
+    naming the limit. Should the block still not return within a minute
+    more, faulthandler prints every thread's stack and ends the process:
+    nothing hangs."""
+    import faulthandler
+    import multiprocessing
+    import threading
+
+    import pytest
+    procs: list = []
+    fired = threading.Event()
+
+    def expire():
+        fired.set()
+        for p in multiprocessing.active_children():
+            p.kill()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    faulthandler.dump_traceback_later(seconds + 60, exit=True)
+    try:
+        yield procs
+    finally:
+        timer.cancel()
+        faulthandler.cancel_dump_traceback_later()
+        if fired.is_set():
+            pytest.fail(f"the test ran past its limit of {seconds} s",
+                        pytrace=False)
+
+
 def run_both(jobs, tmp_dir, timeout=900):
     """Run ``jobs`` through the reference and the port at once, in two
     subprocesses: ``(ref, port)`` result dicts."""
+    return start_both(jobs, tmp_dir)(timeout)
+
+
+def start_both(jobs, tmp_dir):
+    """Start ``run_both``'s two subprocesses and return the function
+    that waits for them (``timeout`` seconds) and returns their results,
+    so that a caller can do other work meanwhile."""
     import subprocess
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     jobs_path = os.path.join(tmp_dir, "jobs.json")
@@ -246,19 +360,32 @@ def run_both(jobs, tmp_dir, timeout=900):
     procs = {}
     for which in ("ref", "port"):
         out = os.path.join(tmp_dir, f"{which}.pkl")
-        procs[which] = (subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), which, jobs_path,
-             out], cwd=root, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True), out)
-    res = []
-    for which, (pr, out) in procs.items():
-        _, err = pr.communicate(timeout=timeout)
-        if pr.returncode != 0:
-            raise RuntimeError(f"{which} jobs failed ({pr.returncode}):\n"
-                               f"{err[-4000:]}")
-        with open(out, "rb") as fh:
-            res.append(pickle.load(fh))
-    return tuple(res)
+        err = os.path.join(tmp_dir, f"{which}.err")
+        with open(err, "w") as fh:
+            procs[which] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), which,
+                 jobs_path, out], cwd=root, env=env,
+                stdout=subprocess.DEVNULL, stderr=fh), out, err)
+
+    def finish(timeout=900):
+        res = []
+        for which, (pr, out, err) in procs.items():
+            try:
+                pr.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                for p in procs.values():
+                    p[0].kill()
+                raise
+            if pr.returncode != 0:
+                with open(err) as fh:
+                    tail = fh.read()[-4000:]
+                raise RuntimeError(f"{which} jobs failed ({pr.returncode}):"
+                                   f"\n{tail}")
+            with open(out, "rb") as fh:
+                res.append(pickle.load(fh))
+        return tuple(res)
+
+    return finish
 
 
 def _ref_main(jobs, out):
@@ -351,10 +478,25 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def loaded_reference_modules(pe):
+    """On a mesh's rank: the JAX modules and the reference's it loaded."""
+    return sorted(m for m in sys.modules if m in ("jax", "repro")
+                  or m.startswith(("jax.", "jaxlib", "repro.")))
+
+
+def raise_on(pe, ranks):
+    """On a mesh's rank: raise a ``ValueError`` on ``ranks``."""
+    if pe.rank in ranks:
+        raise ValueError("refused on this rank")
+    return pe.rank in ranks
+
+
 def _port_main(jobs, out):
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     by_p = {}
+    owner = [j for j in jobs if j["kind"] in ("session", "server")]
+    jobs = [j for j in jobs if j not in owner]
     for j in jobs:
         by_p.setdefault(j["P"], []).append(j)
     tmp = os.path.dirname(os.path.abspath(out))
@@ -367,12 +509,13 @@ def _port_main(jobs, out):
             pr = ctx.Process(target=_rank, args=(r, P, port, js, path))
             pr.start()
             procs.append(pr)
+    # the serving jobs spawn their own meshes, from this process
+    res = {j["id"]: _run(j, "repro_torch") for j in owner}
     for pr in procs:
         pr.join()
     bad = [pr.exitcode for pr in procs if pr.exitcode != 0]
     if bad:
         raise SystemExit(f"port ranks failed: exit codes {bad}")
-    res = {}
     for path in paths:
         with open(path, "rb") as f:
             res.update(pickle.load(f))
