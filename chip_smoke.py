@@ -147,7 +147,7 @@ exits non-zero if any one fails:
      every result ok in one attempt and equal to its solo run, both
      workers serving, each exiting 0 after SIGTERM; its wall beside 8b's
      and each worker process's CPU seconds;
-  9. hub graphs: ``Partitioner().run`` of ba at n=2^19 and rhg at 2^17
+  9. hub graphs: ``Partitioner().run`` of ba at n=2^18 and rhg at 2^17
      (both at 2^20 with ``--hubs-only``, which runs phases 1 and 9 only
      and prints no contract line; seed 17, k=16, preset fast) at
      ``kernel="auto"`` (fused, hub rows through the heavy-row paths) and
@@ -195,6 +195,31 @@ exits non-zero if any one fails:
      one-card machine). Then ``python -m repro_torch.launch.selftest
      --devices 1 --test all kernels --n 2000`` on the card: every line
      is printed and must pass.
+ 12. the placement engine and the models it places, forward only, TF32
+     off: (a) ``gnn_placement.plan`` of phase 4's graph with its ids
+     shuffled (``np.random.default_rng(0).permutation``) on 8 devices,
+     ``fast_config(seed=0)``, fused: its cut and the sha256 of every
+     vertex's block must be the JAX reference's, the placed graph the
+     input relabelled, fewer halo bytes than the naive split; lp_move
+     and seg_merge must have launched, and bal_scores with greedy_pick
+     or neither: they run only for an infeasible level, and this one
+     has none (the launches of the four main-path kernels printed,
+     zeroed just before); (b) GAT at
+     its full CONFIG on the placed graph, held (rtol = atol = 1e-5) to
+     its forward on the input read through ``perm``, and on the
+     full_graph_sm shape to its CPU forward; (c) SchNet, NequIP and
+     DimeNet at full CONFIG on the molecule shape (128 graphs x 30 atoms
+     bonded along their 64 closest pairs), held to their CPU forwards
+     (1e-5, 1e-4, 1e-4), NequIP also under a random rotation; (d) DLRM
+     at full CONFIG (6.66 GB of tables) at serve_p99 (held to the CPU
+     over the table rows it reads) and serve_bulk, and
+     ``retrieval_score`` over 10^6 candidates (top-k scores held to the
+     CPU's, ids equal but where scores tie within the tolerance); (e)
+     ``dlrm_placement.plan`` of (d)'s serve_bulk lookups on 4 shards and
+     ``moe_placement.plan`` of synthetic top-2 routing of arctic's 128
+     experts (2^20 tokens) and top-8 of granite's 32 (2^16) on 4 pods:
+     feasible, and no more cross-pod traffic than the naive split.
+     Forward times by CUDA events, with peak device memory.
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -298,9 +323,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                               "src/repro/kernels/bal_round/bal_round.py:120"),
 }
 # phase 9: the hub graphs (seed 17) and their sizes; cut to 2^19 and 2^17
-# to keep the whole script within half its time limit (phase 10 came
-# after it), both at 2^20 with --hubs-only
-HUB_SIZES = {"ba": 1 << 19, "rhg": 1 << 17}
+# when phase 10 came, and ba to 2^18 when phase 12 came, to keep the
+# whole script near 600 s; both at 2^20 with --hubs-only
+HUB_SIZES = {"ba": 1 << 18, "rhg": 1 << 17}
 HUB_SIZES_FULL = {"ba": 1 << 20, "rhg": 1 << 20}
 MAIN_PATH = ("lp_move", "seg_merge", "bal_scores", "greedy_pick")
 # phase 10: the distributed engine's memory models, and the JAX
@@ -3137,6 +3162,421 @@ def phase_mesh(torch, api, g, lp_run, walls, traces):
     return launch
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the placement engine and the models it places
+# ---------------------------------------------------------------------------
+
+# 12a: phase 4's graph with its ids shuffled (np.random.default_rng(0)
+# .permutation, as tests/test_placement.py shuffles them), placed on 8
+# devices by gnn_placement.plan with fast_config(seed=0). The JAX
+# reference's cut and the sha256 of its int64 block of every input vertex
+# (read off perm and offsets), on the card machine's CPU with
+# kernel="composed" (benchmarks/torch_reference_anchors.py --placement;
+# 94.8 s there, beside the port's 27.1 s on the card, build included)
+PLACE_DEVICES = 8
+PLACE_CUT = 6298
+PLACE_SHA = ("c66b6261710d62b9f02f59d915b521691dc80be6201a33219f3d8d7cc14a"
+             "ceb1")
+# the CPU parity tests' tolerances (tests/test_torch_models.py), rtol = atol
+MODEL_TOL = {"gat-cora": 1e-5, "schnet": 1e-5, "dlrm-rm2": 1e-5,
+             "nequip": 1e-4, "dimenet": 1e-4}
+# 12e: synthetic router samples: (arch, experts, top-k, tokens), 4 pods
+MOE_ROUTING = (("arctic-480b", 128, 2, 1 << 20),
+               ("granite-moe-1b-a400m", 32, 8, 1 << 16))
+MOE_PODS = 4
+DLRM_SHARDS = 4
+
+
+def held(torch, what, got, want, tol):
+    """``got`` (card) against ``want`` within rtol = atol = ``tol``;
+    returns the largest absolute difference."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or "
+          "values not finite")
+    err = float((got.double() - want.double()).abs().max())
+    check(torch.allclose(got, want, rtol=tol, atol=tol),
+          f"{what}: differs beyond rtol = atol = {tol} (max abs "
+          f"difference {err:.3e})")
+    return err
+
+
+def timed_forward(torch, fn, reps=3):
+    """(output, ms a call by CUDA events, peak device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    ms = cuda_ms(torch, fn, reps)
+    return out, ms, torch.cuda.max_memory_allocated()
+
+
+def to_cpu(tree):
+    return {k: v.cpu() for k, v in tree.items()}
+
+
+def placement_blocks(plan):
+    """The block of every input vertex, read off a placement."""
+    return np.searchsorted(plan.offsets, plan.perm, side="right") - 1
+
+
+def place_gnn(torch, build, g, dev):
+    """12a. Returns (plan, launches)."""
+    from repro_torch.core.partitioner import fast_config
+    from repro_torch.placement import gnn_placement
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = gnn_placement.plan(g, PLACE_DEVICES, fast_config(seed=0),
+                              device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sha = assignment_digest(placement_blocks(plan))
+    say(f"  12a gnn_placement.plan(rgg2d {g.n} shuffled, {PLACE_DEVICES}, "
+        f"fast_config(seed=0)) fused: cut {plan.cut}, wall {wall:.3f} s, "
+        f"peak device memory {peak} B, sha256 {sha}")
+    say(f"  12a offsets {plan.offsets.tolist()}, halo bytes "
+        f"{plan.halo_bytes} against {plan.baseline_halo_bytes} for the "
+        f"naive split ({plan.halo_bytes / plan.baseline_halo_bytes:.4f})")
+    say("  12a launches " + json.dumps({k: launches[k] for k in MAIN_PATH}))
+    check([plan.cut, sha] == [PLACE_CUT, PLACE_SHA],
+          f"placement: cut {plan.cut} or the assignment differs from the "
+          f"JAX reference's (cut {PLACE_CUT})")
+    # the balancer's two kernels launch only for a level that is not
+    # feasible; at k=8 on this graph none is (both counts 0)
+    check(launches["lp_move"] > 0 and launches["seg_merge"] > 0
+          and (launches["bal_scores"] > 0) == (launches["greedy_pick"] > 0),
+          f"placement: a kernel of the fused path was not launched: "
+          f"{launches}")
+    if not launches["greedy_pick"]:
+        say("  12a the balancer ran no round (no level was infeasible): "
+            "bal_scores and greedy_pick not launched")
+    g2 = plan.graph
+    check(g2.n == g.n and g2.m == g.m and int(plan.offsets[-1]) == g.n
+          and np.array_equal(np.sort(plan.perm), np.arange(g.n)),
+          "placement: the placed graph is not a relabelling of the input")
+    n = np.int64(g.n)
+    want = np.sort(plan.perm[g.arc_tails()] * n + plan.perm[g.adjncy])
+    got = np.sort(g2.arc_tails() * n + g2.adjncy.astype(np.int64))
+    check(np.array_equal(got, want) and np.array_equal(
+        np.sort(g2.eweights), np.sort(g.eweights)),
+        "placement: the placed graph's arcs are not the input's, relabelled")
+    check(plan.halo_bytes < plan.baseline_halo_bytes,
+          "placement: no fewer halo bytes than the naive split")
+    say("  12a equals the JAX reference (cut, sha256); the placed graph is "
+        "the input relabelled by perm; fewer halo bytes than the naive "
+        "split")
+    return plan, launches
+
+
+def gat_batch(snd, rcv, n, feat):
+    from repro_torch.models.gnn.common import GraphBatch
+    return GraphBatch(senders=snd, receivers=rcv, n_node=n + 1,
+                      node_feat=feat)
+
+
+def gat_on_placement(torch, g, plan, dev):
+    """12b: GAT at full width on the placed graph and on the input."""
+    from repro_torch import configs
+    from repro_torch.models.common import init_params, param_count
+    from repro_torch.models.gnn import gat
+
+    cfg = configs.get("gat-cora").config
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    params = init_params(gat.build_specs(cfg), gen, device=dev)
+    n = g.n
+    feat = torch.randn((n + 1, cfg.d_in), generator=gen, device=dev)
+    perm = torch.as_tensor(plan.perm, device=dev)
+
+    def arcs(gr):
+        return (torch.as_tensor(gr.arc_tails().astype(np.int32), device=dev),
+                torch.as_tensor(gr.adjncy.astype(np.int32), device=dev))
+    b_in = gat_batch(*arcs(g), n, feat)
+    out_in = gat.forward(params, b_in, cfg)
+    del b_in
+    feat_placed = torch.empty_like(feat)
+    feat_placed[perm] = feat[:n]
+    feat_placed[n] = feat[n]
+    del feat
+    b_pl = gat_batch(*arcs(plan.graph), n, feat_placed)
+    out_pl, ms, peak = timed_forward(
+        torch, lambda: gat.forward(params, b_pl, cfg))
+    err = held(torch, "gat on the placement", out_pl[perm], out_in[:n],
+               MODEL_TOL["gat-cora"])
+    say(f"  12b gat-cora CONFIG ({param_count(gat.build_specs(cfg))} "
+        f"parameters, d_in {cfg.d_in}, {cfg.n_heads} heads x "
+        f"{cfg.d_hidden}, {cfg.n_classes} classes) on the placed graph: "
+        f"forward {ms:.3f} ms, peak device memory {peak} B; through perm "
+        f"it equals the forward on the input within "
+        f"{MODEL_TOL['gat-cora']} (max abs difference {err:.3e})")
+    del b_pl, feat_placed, out_in, out_pl
+
+    # full_graph_sm: 2,708 nodes, 10,556 arcs, card against the CPU
+    shape = configs.get("gat-cora").shape("full_graph_sm").params
+    rng = np.random.default_rng(DATA_SEED)
+    n, arcs_n = shape["n_nodes"], shape["n_edges"]
+    pairs = set()
+    while len(pairs) < arcs_n // 2:
+        a, b = (int(x) for x in rng.integers(0, n, 2))
+        if a != b:
+            pairs.add((min(a, b), max(a, b)))
+    p = np.array(sorted(pairs), dtype=np.int32)
+    snd = np.concatenate([p[:, 0], p[:, 1]])
+    rcv = np.concatenate([p[:, 1], p[:, 0]])
+    x = rng.standard_normal((n + 1, cfg.d_in)).astype(np.float32)
+    card = gat.forward(params, gat_batch(
+        torch.as_tensor(snd, device=dev), torch.as_tensor(rcv, device=dev),
+        n, torch.as_tensor(x, device=dev)), cfg)
+    cpu = gat.forward(to_cpu(params), gat_batch(
+        torch.from_numpy(snd), torch.from_numpy(rcv), n,
+        torch.from_numpy(x)), cfg)
+    err = held(torch, "gat full_graph_sm", card, cpu, MODEL_TOL["gat-cora"])
+    say(f"  12b gat-cora full_graph_sm ({n} nodes, {snd.size} arcs): card "
+        f"equals the CPU within {MODEL_TOL['gat-cora']} (max abs "
+        f"difference {err:.3e})")
+
+
+def molecule_fields(rng, n_graphs, atoms, edges, triplets):
+    """The molecule shape's batch: ``n_graphs`` graphs of ``atoms``
+    atoms (positions ~ N(0, 1.5^2) per axis, species 1-9), each bonded
+    along its ``edges`` closest pairs (both directions), with one
+    sentinel node; DimeNet's triplets padded to a multiple of 512."""
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    iu, ju = np.triu_indices(atoms, 1)
+    pos = rng.standard_normal((n_graphs, atoms, 3)).astype(np.float32) * 1.5
+    snd, rcv = [], []
+    for gi in range(n_graphs):
+        d = np.linalg.norm(pos[gi][iu] - pos[gi][ju], axis=-1)
+        near = np.argsort(d, kind="stable")[:edges]
+        a, b = iu[near] + gi * atoms, ju[near] + gi * atoms
+        snd += [a, b]
+        rcv += [b, a]
+    n = n_graphs * atoms
+    f = dict(senders=np.concatenate(snd).astype(np.int32),
+             receivers=np.concatenate(rcv).astype(np.int32), n_node=n + 1,
+             species=rng.integers(1, 10, n + 1),
+             positions=np.concatenate([pos.reshape(n, 3),
+                                       np.zeros((1, 3), np.float32)]),
+             graph_id=np.minimum(np.arange(n + 1) // atoms,
+                                 n_graphs - 1).astype(np.int32),
+             n_graphs=n_graphs, node_mask=np.arange(n + 1) < n)
+    if triplets:
+        E = f["senders"].size
+        kj, _ = build_triplets(f["senders"], f["receivers"], n + 1, 16 * E)
+        cap = -(-int((kj < E).sum()) // 512) * 512
+        kj, ji = build_triplets(f["senders"], f["receivers"], n + 1, cap)
+        f.update(trip_kj=kj, trip_ji=ji)
+    return f
+
+
+def molecules(torch, dev):
+    """12c: SchNet, NequIP and DimeNet at full width on the molecule
+    shape, the card against the CPU; NequIP's energy under a rotation."""
+    from repro_torch import carry, configs
+    from repro_torch.models.common import init_params, param_count
+    from repro_torch.models.gnn import dimenet, nequip, schnet
+
+    shape = configs.get("schnet").shape("molecule").params
+    rng = np.random.default_rng(DATA_SEED)
+    for arch, mod in (("schnet", schnet), ("nequip", nequip),
+                      ("dimenet", dimenet)):
+        cfg = configs.get(arch).config
+        fields = molecule_fields(rng, shape["batch"], shape["n_nodes"],
+                                 shape["n_edges"], arch == "dimenet")
+        gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+        params = init_params(mod.build_specs(cfg), gen, device=dev)
+        batch = carry.graph_batch_from(fields, device=dev)
+        card, ms, peak = timed_forward(
+            torch, lambda: mod.forward(params, batch, cfg))
+        cpu = mod.forward(to_cpu(params),
+                          carry.graph_batch_from(fields, device="cpu"), cfg)
+        tol = MODEL_TOL[arch]
+        err = held(torch, f"{arch} molecule", card, cpu, tol)
+        trip = (f", {int((fields['trip_kj'] < fields['senders'].size).sum())}"
+                f" triplets (padded to {fields['trip_kj'].size})"
+                if arch == "dimenet" else "")
+        say(f"  12c {arch} CONFIG ({param_count(mod.build_specs(cfg))} "
+            f"parameters) on {shape['batch']} molecules of "
+            f"{shape['n_nodes']} atoms, {fields['senders'].size} arcs{trip}:"
+            f" forward {ms:.3f} ms, peak device memory {peak} B; card "
+            f"equals the CPU within {tol} (max abs difference {err:.3e})")
+        if arch == "nequip":
+            from scipy.spatial.transform import Rotation
+            R = torch.as_tensor(Rotation.random(random_state=7).as_matrix(),
+                                dtype=torch.float32, device=dev)
+            rotated = dataclasses.replace(batch,
+                                          positions=batch.positions @ R.T)
+            err = held(torch, "nequip under a rotation",
+                       mod.forward(params, rotated, cfg), card, tol)
+            say(f"  12c nequip: energies invariant under a random rotation "
+                f"on the card within {tol} (max abs difference {err:.3e})")
+
+
+def remapped_tables(torch, tables, sparse):
+    """The rows of ``tables`` that ``sparse`` reads, on the CPU, and
+    ``sparse`` renumbered into them: (small tables, indices)."""
+    n_tab = tables.shape[0]
+    uniq = [torch.unique(sparse[:, t]) for t in range(n_tab)]
+    width = max(u.numel() for u in uniq)
+    small = torch.zeros((n_tab, width, tables.shape[2]),
+                        dtype=tables.dtype)
+    idx = torch.empty_like(sparse, device="cpu")
+    for t, u in enumerate(uniq):
+        small[t, :u.numel()] = tables[t, u.long()].cpu()
+        idx[:, t] = torch.searchsorted(u, sparse[:, t].contiguous()).cpu()
+    return small, idx
+
+
+def dlrm_phase(torch, dev):
+    """12d. Returns the serve_bulk batch's sparse indices (numpy)."""
+    from repro_torch import configs
+    from repro_torch.models import dlrm
+    from repro_torch.models.common import init_params, param_count
+
+    entry = configs.get("dlrm-rm2")
+    cfg = entry.config
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(dlrm.build_specs(cfg), gen, device=dev)
+    say(f"  12d dlrm-rm2 CONFIG: {param_count(dlrm.build_specs(cfg))} "
+        f"parameters, tables {tuple(params['tables'].shape)} fp32 "
+        f"({params['tables'].numel() * 4} B on the card)")
+
+    def batch(B):
+        return {"dense": torch.randn((B, cfg.n_dense), generator=gen,
+                                     device=dev),
+                "sparse": torch.randint(0, cfg.vocab_per_table,
+                                        (B, cfg.n_sparse, cfg.bag_size),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)}
+    small_params = {k: v.cpu() for k, v in params.items() if k != "tables"}
+    for name in ("serve_p99", "serve_bulk"):
+        B = entry.shape(name).params["batch"]
+        b = batch(B)
+        out, ms, peak = timed_forward(
+            torch, lambda: dlrm.forward(params, b, cfg))
+        check(out.shape == (B,) and bool(torch.isfinite(out).all()),
+              f"dlrm {name}: logits of shape {tuple(out.shape)} or not "
+              "finite")
+        line = (f"  12d dlrm-rm2 {name} (B={B}): forward {ms:.3f} ms, peak "
+                f"device memory {peak} B")
+        if name == "serve_p99":
+            tabs, idx = remapped_tables(torch, params["tables"], b["sparse"])
+            cpu = dlrm.forward(
+                dict(small_params, tables=tabs),
+                {"dense": b["dense"].cpu(), "sparse": idx},
+                dataclasses.replace(cfg, vocab_per_table=tabs.shape[1]))
+            err = held(torch, "dlrm serve_p99", out, cpu,
+                       MODEL_TOL["dlrm-rm2"])
+            line += (f"; card equals the CPU over the {tabs.shape[1]}-row "
+                     f"tables it reads within {MODEL_TOL['dlrm-rm2']} (max "
+                     f"abs difference {err:.3e})")
+        say(line)
+    bulk = b["sparse"].cpu().numpy()
+    shape = entry.shape("retrieval_cand").params
+    q = batch(1)
+    q["candidates"] = torch.randn((shape["n_candidates"], cfg.embed_dim),
+                                  generator=gen, device=dev)
+    (vals, ids), ms, peak = timed_forward(
+        torch, lambda: dlrm.retrieval_score(params, q, cfg))
+    tabs, idx = remapped_tables(torch, params["tables"], q["sparse"])
+    cvals, cids = dlrm.retrieval_score(
+        dict(small_params, tables=tabs),
+        {"dense": q["dense"].cpu(), "sparse": idx,
+         "candidates": q["candidates"].cpu()},
+        dataclasses.replace(cfg, vocab_per_table=tabs.shape[1]))
+    tol = MODEL_TOL["dlrm-rm2"]
+    err = held(torch, "dlrm retrieval top-k scores", vals, cvals, tol)
+    # ids agree except where the CPU's scores tie within the tolerance
+    v = cvals.double().numpy()
+    gap = np.minimum(np.abs(np.diff(v, prepend=np.inf)),
+                     np.abs(np.diff(v, append=-np.inf)))
+    differ = ids.cpu().numpy() != cids.numpy()
+    check(not (differ & (gap > 2 * tol * (1 + np.abs(v)))).any(),
+          "dlrm retrieval: top-k ids differ where the scores do not tie")
+    say(f"  12d dlrm-rm2 retrieval_cand ({shape['n_candidates']} "
+        f"candidates, top 100): {ms:.3f} ms, peak device memory {peak} B; "
+        f"scores equal the CPU's within {tol} (max abs difference "
+        f"{err:.3e}), ids equal but for {int(differ.sum())} near-ties")
+    del params, q
+    return bulk
+
+
+def router_samples(torch, experts, k, tokens, dev):
+    """Synthetic top-k routing: each token prefers one of 4 expert groups
+    (shuffled ids), k distinct experts by a Gumbel top-k over biased
+    logits."""
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    group = torch.randint(0, 4, (tokens,), generator=gen, device=dev)
+    shuffle = torch.randperm(experts, generator=gen, device=dev)
+    member = (shuffle[None, :] * 4 // experts) == group[:, None]
+    u = torch.rand((tokens, experts), generator=gen, device=dev)
+    logits = -torch.log(-torch.log(u.clamp_min(1e-20))) + 2.0 * member
+    return torch.topk(logits, k, dim=1).indices.cpu().numpy()
+
+
+def other_placements(torch, sparse, dev):
+    """12e: DLRM tables on 4 shards, MoE experts on 4 pods."""
+    from repro_torch import configs
+    from repro_torch.core import metrics
+    from repro_torch.placement import dlrm_placement, moe_placement
+
+    cfg = configs.get("dlrm-rm2").config
+    rows = np.full(cfg.n_sparse, cfg.vocab_per_table)
+    t0 = time.perf_counter()
+    out = dlrm_placement.plan(sparse, rows, DLRM_SHARDS, device=dev)
+    wall = time.perf_counter() - t0
+    check(out["feasible"] and out["assignment"].shape == (cfg.n_sparse,),
+          f"dlrm placement infeasible: {out}")
+    say(f"  12e dlrm_placement.plan (serve_bulk's {sparse.shape[0]} x "
+        f"{sparse.shape[1]} lookups, {DLRM_SHARDS} shards): {wall:.3f} s, "
+        f"cut {out['cut']}, imbalance {out['imbalance']:.4f}, tables per "
+        f"shard {np.bincount(out['assignment'], minlength=DLRM_SHARDS)}")
+    for arch, experts, k, tokens in MOE_ROUTING:
+        samples = router_samples(torch, experts, k, tokens, dev)
+        t0 = time.perf_counter()
+        out = moe_placement.plan(samples, experts, MOE_PODS, device=dev)
+        wall = time.perf_counter() - t0
+        g = moe_placement.coactivation_graph(samples, experts)
+        check(metrics.is_feasible(g, out["assignment"], MOE_PODS, 0.01)
+              and out["cross_pod_fraction"]
+              <= out["naive_cross_pod_fraction"],
+              f"moe placement {arch}: infeasible or worse than the naive "
+              f"split: {out}")
+        say(f"  12e moe_placement.plan ({arch}: {experts} experts, top-{k}, "
+            f"{tokens} tokens, {MOE_PODS} pods): {wall:.3f} s, cross-pod "
+            f"fraction {out['cross_pod_fraction']:.4f} against "
+            f"{out['naive_cross_pod_fraction']:.4f} naive, experts per pod "
+            f"{out['experts_per_pod']}")
+
+
+def phase_models(torch, api, build, g0, dev=None):
+    """Phase 12 on ``dev`` (card 0). Returns the placement's launches."""
+    from repro_torch.graphs.format import permute
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    say("== phase 12: the placement engine and the models it places "
+        "(full CONFIGs, forward only)")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "phase 12: TF32 matmuls are on")
+    g, _ = permute(g0, np.random.default_rng(0).permutation(g0.n))
+    plan, launches = place_gnn(torch, build, g, dev)
+    gat_on_placement(torch, g, plan, dev)
+    del plan
+    molecules(torch, dev)
+    sparse = dlrm_phase(torch, dev)
+    other_placements(torch, sparse, dev)
+    torch.cuda.empty_cache()
+    say(f"  phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def hubs_only(torch, api, build) -> int:
     """``--hubs-only``: phases 1 and 9, both hub graphs at 2^20."""
     smi = phase_environment(torch, build)
@@ -3171,6 +3611,15 @@ def mesh_only(torch, api, build) -> int:
     return 0
 
 
+def models_only(torch, api, build) -> int:
+    """``--models-only``: phases 1 and 12."""
+    smi = phase_environment(torch, build)
+    g = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17).materialize()
+    phase_models(torch, api, build, g)
+    say(smi)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3186,6 +3635,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="only build the kernels and run phases 10 and 11 "
                          "(no contract line)")
+    ap.add_argument("--models-only", action="store_true",
+                    help="only build the kernels and run phase 12 (no "
+                         "contract line)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3207,18 +3659,21 @@ def main(argv=None) -> int:
 
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the port pulled in the JAX package")
+    # the plain versions' f32 products (bsr_spmm's einsum) and the
+    # models' matmuls in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are still on")
     if args.hubs_only:
         return hubs_only(torch, api, build)
     if args.dist_only:
         return dist_only(torch, api, build)
     if args.mesh_only:
         return mesh_only(torch, api, build)
+    if args.models_only:
+        return models_only(torch, api, build)
     dev = torch.device("cuda", 0)
-    # the plain versions' f32 products (bsr_spmm's einsum) in full f32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    check(not torch.backends.cuda.matmul.allow_tf32,
-          "TF32 matmuls are still on")
     t_all = time.perf_counter()
     smi = phase_environment(torch, build)
     phase_ragged(torch, dev)
@@ -3258,6 +3713,7 @@ def main(argv=None) -> int:
     by_path.update(dist_paths)
     kernels[4:4] = dist_rows
     by_path["mesh"] = phase_mesh(torch, api, g, lp_run, *dist_walls)
+    by_path["placement"] = phase_models(torch, api, build, g)
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

@@ -385,6 +385,8 @@ class PeMesh:
     rest of a call and its answer through the pipe.
     """
 
+    axis_names = ("pe",)      # a 1-D mesh, as ``dist/sharding.py`` reads it
+
     def __init__(self, devices: Sequence, wait: bool = True):
         import multiprocessing as mp
 
@@ -442,6 +444,10 @@ class PeMesh:
             self._procs.append(proc)
         if wait:
             self.wait_ready()
+
+    @property
+    def axis_sizes(self):
+        return (self.size,)
 
     def __repr__(self) -> str:
         return (f"PeMesh(size={self.size}, devices="

@@ -15,8 +15,7 @@ A session of ``devices`` > 1 owns a mesh (``api.runtime.PeMesh``: one
 rank process a PE, built on the first distributed request) and sends
 every distributed request at that PE count to its ranks, one request at
 a time; everything else runs in this process, as a solo run would.
-``shard_ctx`` (the reference's handle for the model layers) arrives
-with ``dist/sharding.py`` and the models, ROADMAP queue 4.
+``shard_ctx`` is the model layers' handle on the session's PEs.
 """
 from __future__ import annotations
 
@@ -172,12 +171,12 @@ class PartitionSession:
 
     @property
     def shard_ctx(self):
-        """The reference's sharding context over the session mesh, the
-        model layers' handle."""
-        raise NotImplementedError(
-            "PartitionSession.shard_ctx: the sharding rules of the model "
-            "layers (dist/sharding.py) are not ported to repro_torch yet; "
-            "they arrive with the models, ROADMAP queue 4")
+        """The sharding context the model layers take: ``NULL_CTX`` for
+        a single-device session, else a ``ShardCtx`` over the session's
+        ``pe`` axis of ``devices`` PEs (its mesh if it has one; a
+        ``MeshShape`` otherwise: this spawns no rank)."""
+        from ..dist.sharding import pe_ctx
+        return pe_ctx(self.devices, self._mesh)
 
     @property
     def device(self):

@@ -14,9 +14,10 @@ importing the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from .core.deep_mgp import PartitionerConfig
 from .graphs.distribute import GraphShards
@@ -68,3 +69,99 @@ def request_from_fields(fields: Mapping[str, Any]):
     if f.get("config") is not None:
         f["config"] = config_from_dict(dataclasses.asdict(f["config"]))
     return PartitionRequest(graph=graph, **f)
+
+
+def _model_module(arch_id: str):
+    from .models import dlrm
+    from .models.gnn import dimenet, gat, nequip, schnet
+    return {"gat-cora": gat, "schnet": schnet, "nequip": nequip,
+            "dimenet": dimenet, "dlrm-rm2": dlrm}[arch_id]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of the same name as ``dtype`` (a torch dtype, a
+    numpy dtype, or a scalar type such as the reference's
+    ``jnp.float32``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = getattr(dtype, "__name__", None) or np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"no torch dtype is named {name!r}")
+    return out
+
+
+def config_of(arch_id: str, fields: Mapping[str, Any]):
+    """The port's config of ``arch_id`` from a reference config's fields
+    (``dataclasses.asdict``); dtype fields are mapped by name."""
+    from . import configs
+    cls = type(configs.get(arch_id).config)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in fields:
+            v = fields[f.name]
+            kw[f.name] = torch_dtype(v) if isinstance(
+                f.default, torch.dtype) else v
+    unknown = set(fields) - set(kw)
+    if unknown:
+        raise TypeError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    return cls(**kw)
+
+
+def model_from(arch_id: str, arrays: Mapping[str, Any],
+               fields: Mapping[str, Any], device=None) -> Tuple[Dict, Any]:
+    """``(params, cfg)`` of the port for a reference parameter tree
+    (numpy arrays under the reference's spec keys, nested dicts alike)
+    and config fields. Every spec key must be there with its spec's
+    shape; each tensor takes its spec's dtype, on ``device`` (the card
+    by default)."""
+    from .kernels.dispatch import resolve_device
+    from .models.common import is_spec
+
+    device = resolve_device(device)
+    cfg = config_of(arch_id, fields)
+    specs = _model_module(arch_id).build_specs(cfg)
+
+    def build(spec_tree, tree, path):
+        if is_spec(spec_tree):
+            a = np.asarray(tree)
+            if tuple(a.shape) != tuple(spec_tree.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {a.shape}, the "
+                                 f"spec's is {spec_tree.shape}")
+            if a.dtype.name == "bfloat16":     # numpy has no such type
+                a = a.astype(np.float32)           # exact
+            return torch.tensor(a, dtype=spec_tree.dtype, device=device)
+        if set(tree) != set(spec_tree):
+            raise KeyError(f"{'/'.join(path) or 'params'}: keys "
+                           f"{sorted(set(tree) ^ set(spec_tree))} differ "
+                           "from the spec tree's")
+        return {k: build(v, tree[k], path + (k,))
+                for k, v in spec_tree.items()}
+    return build(specs, arrays, ()), cfg
+
+
+def graph_batch_from(fields: Mapping[str, Any], device=None):
+    """The port's ``GraphBatch`` from a reference batch's fields (arrays
+    as numpy, ``n_node`` and ``n_graphs`` as ints), on ``device``."""
+    from .kernels.dispatch import resolve_device
+    from .models.gnn.common import GraphBatch
+
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(GraphBatch):
+        v = fields.get(f.name)
+        if f.name in ("n_node", "n_graphs"):
+            kw[f.name] = int(v) if v is not None else f.default
+        elif v is not None:
+            kw[f.name] = torch.as_tensor(np.asarray(v), device=device)
+    return GraphBatch(**kw)
+
+
+def dlrm_batch_from(batch: Mapping[str, Any], device=None) -> Dict:
+    """A DLRM batch (``dense``, ``sparse``, ``labels``, ``candidates``:
+    whichever are there) as tensors on ``device``."""
+    from .kernels.dispatch import resolve_device
+
+    device = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}

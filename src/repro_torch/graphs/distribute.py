@@ -133,7 +133,13 @@ def assemble_shards(n: int, offsets: np.ndarray,
 
 
 def distribute_graph(g: Graph, P: int, by_arcs: bool = True) -> GraphShards:
-    offsets = balanced_offsets(g, P, by_arcs)
+    return shards_at_offsets(g, balanced_offsets(g, P, by_arcs))
+
+
+def shards_at_offsets(g: Graph, offsets: np.ndarray) -> GraphShards:
+    """``distribute_graph`` over given block boundaries: PE p owns
+    [offsets[p], offsets[p+1]) (the placement engine's blocks)."""
+    P = offsets.shape[0] - 1
     src = g.arc_tails()
     arc_parts, vw_parts = [], []
     for p in range(P):

@@ -134,6 +134,10 @@ class _Worker:
     def start(self) -> None:
         self.thread.start()
 
+    @property
+    def shard_ctx(self):
+        return self.session.shard_ctx
+
     def hold(self) -> None:
         self._gate.clear()
 
@@ -768,6 +772,14 @@ class PartitionServer:
     @property
     def workers(self) -> List[_Worker]:
         return list(self._workers)
+
+    @property
+    def shard_ctx(self):
+        """The sharding context of one mesh of the server:
+        ``NULL_CTX`` for ``devices_per_mesh == 1``, else a ``ShardCtx``
+        over a ``pe`` axis of ``devices_per_mesh`` PEs."""
+        from ..dist.sharding import pe_ctx
+        return pe_ctx(self.devices_per_mesh)
 
     def kill_worker(self, wid: int) -> None:
         """Take worker ``wid`` out of rotation. Attempts it still owns

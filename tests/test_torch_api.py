@@ -203,8 +203,9 @@ def test_unported_session_parts_raise(what, item, monkeypatch):
     now serves a distributed request on a mesh of two CPU ranks (the
     known P=2 cut of rgg2d 1500 seed 3, k=8, C=32) and a single one in
     this process, ``mesh=`` is held to the session's PE count, and
-    ``shard_ctx`` (``item``: the queue it waits in is now 4, with the
-    models) still raises."""
+    ``shard_ctx``, once refused until the models came, is ``NULL_CTX``
+    for one device and a replicating ``pe`` context for two, spawning no
+    rank. (``item`` keeps the cases' ids as they were.)"""
     with torch_dist_jobs.time_limit(240):      # spawns mesh ranks
         if what == "devices":
             monkeypatch.setenv("OMP_NUM_THREADS", "1")
@@ -235,10 +236,25 @@ def test_unported_session_parts_raise(what, item, monkeypatch):
                                       device=CPU) as sess:
                 assert sess.mesh is given       # used as it is, left open
         else:
+            import multiprocessing
+
+            from repro_torch.dist import sharding
             with api.PartitionSession(device=CPU) as sess:
-                with pytest.raises(NotImplementedError,
-                                   match=r"ROADMAP queue 4"):
-                    sess.shard_ctx
+                assert sess.shard_ctx is sharding.NULL_CTX
+            with api.PartitionSession(devices=2, device=CPU) as sess:
+                ctx = sess.shard_ctx
+                assert isinstance(ctx, sharding.ShardCtx)
+                assert tuple(ctx.mesh.axis_names) == ("pe",)
+                assert ctx.mesh.axis_sizes == (2,)
+                x = np.zeros((8, 4, 2), np.float32)
+                for axes in (("nodes", "heads", None),
+                             ("batch", "mlp", "vocab")):
+                    assert sharding.resolve_axes(x.shape, axes,
+                                                 ctx.mesh) == (None,) * 3
+                    assert ctx.constrain(x, *axes) is x
+                assert ctx.data_groups() == 1
+                assert sess._mesh is None     # no rank was spawned
+                assert not multiprocessing.active_children()
 
 
 def _cli(module, *extra):

@@ -262,3 +262,65 @@ def test_a_mesh_rank_loads_no_jax_and_no_reference():
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
     assert out.stdout.strip().endswith("ok")
+
+
+def test_modules_walked_include_the_models_and_placement():
+    mods = _modules()
+    for m in ("repro_torch.models", "repro_torch.models.common",
+              "repro_torch.models.dlrm", "repro_torch.models.gnn",
+              "repro_torch.models.gnn.common", "repro_torch.models.gnn.gat",
+              "repro_torch.models.gnn.schnet",
+              "repro_torch.models.gnn.nequip",
+              "repro_torch.models.gnn.dimenet", "repro_torch.configs",
+              "repro_torch.configs.gat_cora", "repro_torch.configs.schnet",
+              "repro_torch.configs.nequip", "repro_torch.configs.dimenet",
+              "repro_torch.configs.dlrm_rm2", "repro_torch.placement",
+              "repro_torch.placement.gnn_placement",
+              "repro_torch.placement.dlrm_placement",
+              "repro_torch.placement.moe_placement",
+              "repro_torch.dist.sharding", "repro_torch.launch.gnn_data"):
+        assert m in mods
+
+
+def test_model_and_placement_entry_points_raise_without_cuda():
+    """The models' parameters and batches, the placements and the GNN
+    batch builder run on the card unless ``device="cpu"`` is passed."""
+    code = (
+        "import numpy as np, torch\n"
+        "from repro_torch import configs, carry\n"
+        "from repro_torch.launch.gnn_data import build_gnn_batch\n"
+        "from repro_torch.models import common\n"
+        "from repro_torch.models.gnn import gat\n"
+        "from repro_torch.placement import dlrm_placement, gnn_placement\n"
+        "from repro_torch.placement import moe_placement\n"
+        "from repro_torch.graphs import generators\n"
+        "cfg = configs.get('gat-cora').smoke_config\n"
+        "g = generators.make('rgg2d', 300, 8.0, seed=1)\n"
+        "sparse = np.zeros((8, 4, 1), np.int64)\n"
+        "top2 = np.random.default_rng(0).integers(0, 8, (200, 2))\n"
+        "specs = gat.build_specs(cfg)\n"
+        "gen = torch.Generator()\n"
+        "calls = {\n"
+        "  'init_params': lambda: common.init_params(specs, gen),\n"
+        "  'gnn_batch': lambda: build_gnn_batch('gat-cora', cfg, n=50),\n"
+        "  'gnn_plan': lambda: gnn_placement.plan(g, 4),\n"
+        "  'dlrm_plan': lambda: dlrm_placement.plan(sparse,\n"
+        "                                 np.ones(4, int) * 10, 2),\n"
+        "  'moe_plan': lambda: moe_placement.plan(top2, 8, 2),\n"
+        "  'carry': lambda: carry.dlrm_batch_from({'dense': np.ones(2)}),\n"
+        "}\n"
+        "for name, fn in calls.items():\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except RuntimeError as exc:\n"
+        "        assert \"device='cpu'\" in str(exc), exc\n"
+        "    else:\n"
+        "        raise SystemExit(name + ' ran without a CUDA device')\n"
+        "p = common.init_params(specs, gen, device='cpu')\n"
+        "b = build_gnn_batch('gat-cora', cfg, n=50, device='cpu')\n"
+        "assert gat.forward(p, b, cfg).shape == (b.n_node, cfg.n_classes)\n"
+        "assert gnn_placement.plan(g, 4, device='cpu').offsets[-1] == g.n\n"
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip().endswith("ok")
