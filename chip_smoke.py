@@ -220,6 +220,28 @@ exits non-zero if any one fails:
      experts (2^20 tokens) and top-8 of granite's 32 (2^16) on 4 pods:
      feasible, and no more cross-pod traffic than the naive split.
      Forward times by CUDA events, with peak device memory.
+ 13. the decoder-only LMs (``models/transformer.py``), forward only, TF32
+     off, bf16 products accumulated in float32; random weights from a
+     seed (``lm_params``: each layer matrix at 1/sqrt of its contraction
+     width). (a) qwen2-7b at its full 28-layer CONFIG: ``forward`` at
+     B=1 x S=8192 and 32 greedy ``decode_step``s at B=8 over a 32768
+     cache whose first 32736 positions hold random K/V; (b) gemma-2b,
+     stablelm-12b and granite-moe-1b at full CONFIG and (c) arctic-480b
+     at full width and 2 of its 35 layers: prefill 1 x 2048 and 16 steps
+     at B=8 over a 4096 cache. Each bf16 prefill's logits are held to
+     the same weights and tokens at float32 compute (granite's also,
+     and arctic's only, at 1 layer): relative Frobenius error at most
+     2^-4, MoE positions whose routing flipped between the two left out
+     and counted; the padded
+     vocab columns are -1e30; for the dense three, 16 float32 decode
+     steps equal the float32 forward within 2e-4. (d) every SMOKE config
+     at float32 on the card equals the CPU within 1e-4 (forward, aux, 8
+     decode steps). (e) ``python -m repro_torch.launch.serve_lm --arch
+     qwen2-7b --config full --batch 4 --prompt-len 12 --gen-len 20
+     --max-len 64`` exits 0. Prefill and per-step times by CUDA events,
+     tokens per second and peak device memory for each model; no
+     partitioner kernel may launch (the counts, zeroed just before, are
+     printed). ``--lm-only`` runs phases 1 and 13 (no contract line).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -229,8 +251,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import json
+import math
 import os
 import re
 import signal
@@ -3577,6 +3601,360 @@ def phase_models(torch, api, build, g0, dev=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the decoder-only LMs (forward only)
+# ---------------------------------------------------------------------------
+
+# arch, layers (None: the CONFIG's), prefill (B, S), decode (B, steps,
+# cache positions). qwen2-7b's prefill_32k is cut from 32 x 32768 (319 GB
+# of bf16 logits) to 1 x 8192 and its decode_32k from B=128 (a 240 GB
+# cache) to 8; the others prefill 1 x 2048 and decode at B=8 from a 4096
+# cache; arctic keeps its width at 2 of its 35 layers (953.7 GB)
+LM_RUNS = (
+    ("qwen2-7b", None, (1, 8192), (8, 32, 32768)),
+    ("gemma-2b", None, (1, 2048), (8, 16, 4096)),
+    ("stablelm-12b", None, (1, 2048), (8, 16, 4096)),
+    ("granite-moe-1b-a400m", None, (1, 2048), (8, 16, 4096)),
+    ("arctic-480b", 2, (1, 2048), (8, 16, 4096)),
+)
+# bf16 logits against the same model's float32 ones: relative Frobenius
+# error at most 16 bf16 ulps (2^-8 each). Each layer adds some 16 bf16
+# roundings of relative error <= 2^-9 (projections, rope, probabilities,
+# activations, residual adds) that add up like a random walk; at reduced
+# widths (d 256-512) the port measured 0.010-0.021 dense at 2-24 layers.
+# MoE positions whose top-k choice flips between the two (a near-tie of
+# gates), or whose choice a flip moved across the capacity cut, are left
+# out of the comparison and counted
+LM_BF16_FRO = 2.0 ** -4
+LM_F32_TOL = 2e-4          # decode equals forward (tests/test_arch_smoke.py)
+LM_F32_POSITIONS = 16
+LM_SMOKE_TOL = 1e-4        # the card against the CPU, SMOKE configs
+LM_SMOKE_STEPS = 8
+# the serving CLI on the card: qwen2-7b's full CONFIG
+LM_CLI = ["--arch", "qwen2-7b", "--config", "full", "--batch", "4",
+          "--prompt-len", "12", "--gen-len", "20", "--max-len", "64"]
+LM_MATRICES = ("wq", "wk", "wv", "wo", "w_in", "w_out", "router", "e_in",
+               "e_out")
+
+
+def lm_params(torch, T, cfg, dev):
+    """Random weights for ``cfg`` from ``DATA_SEED``: the port's
+    ``init_params``, with each stacked layer matrix rescaled to 1/sqrt
+    of its own contraction width. The reference's init takes a leaf's
+    first axis as its fan-in, which for the stacked layer weights is the
+    layer count: at qwen2-7b's 28 layers a std of 0.19 where a
+    unit-preserving one is 1/sqrt(3584) = 0.017, attention scores of std
+    ~120 and a softmax that is a hard argmax, on which bf16 and float32
+    pick different keys."""
+    from repro_torch.models.common import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    params = init_params(T.build_specs(cfg), gen, device=dev)
+    for name in LM_MATRICES:
+        w = params["layers"].get(name)
+        if w is None:
+            continue
+        fan = {"wo": w.shape[1] * w.shape[2], "e_in": w.shape[2],
+               "e_out": w.shape[2]}.get(name, w.shape[1])
+        w.mul_(math.sqrt(cfg.n_layers / fan))
+    return params
+
+
+def routed(T, fn):
+    """``fn()`` with every ``routing_plan`` call's choices recorded: per
+    layer the (G, Tg*k) expert ids and whether each choice was dropped
+    at the capacity cut. Returns (output, [(ids, dropped)])."""
+    calls = []
+    plan = T.routing_plan
+
+    def record(eid, *args):
+        src_tok, slot_of = plan(eid, *args)
+        calls.append((eid.clone(), slot_of >= src_tok.shape[1]))
+        return src_tok, slot_of
+    T.routing_plan = record
+    try:
+        return fn(), calls
+    finally:
+        T.routing_plan = plan
+
+
+def same_routing(torch, cfg, a, b, shape):
+    """(B, S) mask of the tokens whose experts, and which of them the
+    capacity cut dropped, are the same in every layer of the two
+    recorded runs (a flip moves other tokens of the expert across the
+    cut too)."""
+    keep = torch.ones(shape, dtype=torch.bool, device=a[0][0].device)
+
+    def choices(eid, dropped):
+        eid, order = torch.sort(eid.reshape(-1, cfg.top_k), dim=1)
+        return eid, torch.gather(dropped.reshape(-1, cfg.top_k), 1, order)
+    for (xe, xd), (ye, yd) in zip(a, b):
+        (xe, xd), (ye, yd) = choices(xe, xd), choices(ye, yd)
+        keep &= ((xe == ye) & (xd == yd)).all(dim=1).reshape(shape)
+    return keep
+
+
+def bf16_against_f32(torch, T, params, cfg, toks):
+    """The bf16 forward against the float32 one of the same weights:
+    (relative Frobenius error, max error over max |f32|, share of
+    positions whose argmax agrees, share left out for a flipped MoE
+    routing) over the vocab's columns."""
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    (lo, _), ra = routed(T, lambda: T.forward(params, toks, cfg))
+    (hi, _), rb = routed(T, lambda: T.forward(params, toks, f32))
+    lo, hi = lo[..., :cfg.vocab].float(), hi[..., :cfg.vocab]
+    keep = same_routing(torch, cfg, ra, rb, toks.shape) if cfg.moe else \
+        torch.ones(toks.shape, dtype=torch.bool, device=toks.device)
+    d = lo[keep] - hi[keep]
+    fro = float(d.norm() / hi[keep].norm())
+    mx = float(d.abs().max() / hi[keep].abs().max())
+    agree = float((lo.argmax(-1) == hi.argmax(-1)).float().mean())
+    return fro, mx, agree, 1.0 - float(keep.float().mean())
+
+
+def decode_equals_forward(torch, T, params, cfg, dev):
+    """Float32 decode over ``LM_F32_POSITIONS`` positions against the
+    float32 forward of the same tokens; the largest difference."""
+    from repro_torch.models.common import tree_map_specs
+
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED + 2)
+    P = LM_F32_POSITIONS
+    toks = torch.randint(0, cfg.vocab, (2, P), generator=gen, device=dev)
+    full, _ = T.forward(params, toks, f32)
+    cache = tree_map_specs(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+        T.cache_specs(f32, 2, P))
+    err = 0.0
+    for t in range(P):
+        lens = torch.full((2,), t, dtype=torch.int64, device=dev)
+        lg, _ = T.decode_step(params, cache, toks[:, t], lens, f32)
+        err = max(err, held(torch, f"{cfg.name} decode at position {t}",
+                            lg[:, :cfg.vocab], full[:, t, :cfg.vocab],
+                            LM_F32_TOL))
+    return err
+
+
+def lm_decode(torch, T, params, cfg, dev, B, steps, max_len):
+    """``steps`` greedy ``decode_step``s at batch ``B`` from a cache of
+    ``max_len`` positions whose first ``max_len - steps`` hold random
+    K/V (the context). Returns (ms a step, tokens, peak bytes)."""
+    from repro_torch.models.common import tree_map_specs
+
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED + 1)
+    cache = tree_map_specs(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+        T.cache_specs(cfg, B, max_len))
+    start = max_len - steps
+    for n in ("k", "v"):
+        for li in range(cfg.n_layers):
+            cache[n][li, :, :start].normal_(generator=gen)
+    tok = torch.randint(1, cfg.vocab, (B,), generator=gen, device=dev)
+    out = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for t in range(steps):
+        lens = torch.full((B,), start + t, dtype=torch.int64, device=dev)
+        logits, _ = T.decode_step(params, cache, tok, lens, cfg)
+        tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)
+        out.append(tok)
+    e1.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+          f"{cfg.name} decode: logits not finite")
+    written = cache["k"][:, :, start:].abs().amax(dim=(0, 3, 4)) > 0
+    check(bool(written.all()), f"{cfg.name} decode: a step wrote no K")
+    return (e0.elapsed_time(e1) / steps, torch.stack(out, 1).cpu(),
+            torch.cuda.max_memory_allocated())
+
+
+def lm_full(torch, arch, layers, prefill, decode, dev, failures):
+    """13a-c: one LM at full width; returns its numbers."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import param_count
+
+    entry = configs.get(arch)
+    cfg = entry.config
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm_params(torch, T, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = param_count(T.build_specs(cfg))
+    size = sum(v.numel() * v.element_size() for v in
+               [params["embed"], params["ln_f"], params.get("head")]
+               + list(params["layers"].values()) if v is not None)
+    cut = "" if layers is None else \
+        f", cut to {layers} of {entry.config.n_layers} layers"
+    say(f"  13 {arch} CONFIG{cut}: {n} parameters, {size} B "
+        f"({str(cfg.param_dtype).split('.')[-1]}) drawn in {init_s:.2f} s")
+    B, S = prefill
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED + 3)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    logits, ms, peak = timed_forward(
+        torch, lambda: T.forward(params, toks, cfg)[0], reps=1)
+    check(tuple(logits.shape) == (B, S, cfg.vocab_pad)
+          and logits.dtype == cfg.compute_dtype
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{arch} prefill: logits of shape {tuple(logits.shape)}, "
+          f"{logits.dtype} or not finite")
+    pad = torch.tensor(-1e30).to(cfg.compute_dtype)
+    check(bool((logits[..., cfg.vocab:] == pad.to(dev)).all()),
+          f"{arch} prefill: padded logit columns are not -1e30")
+    del logits
+    row = {"arch": arch, "layers": cfg.n_layers, "params": n, "bytes": size,
+           "init_s": init_s, "prefill": [B, S], "prefill_ms": ms,
+           "prefill_tok_s": B * S / ms * 1e3, "prefill_peak": peak}
+    say(f"  13 {arch} prefill B={B} x S={S} (bf16): {ms:.3f} ms "
+        f"({row['prefill_tok_s']:.0f} tok/s), peak device memory {peak} B")
+    # the float32 comparison at full depth, and for the MoE archs at 1
+    # layer too, where few routings flip (views into layer 0); arctic's
+    # at 1 layer only, where the experts' float32 casts fit beside the
+    # weights
+    depths = [1] if arch == "arctic-480b" else \
+        [cfg.n_layers] + ([1] if cfg.moe else [])
+    row["bf16_against_f32"] = []
+    for depth in depths:
+        fro, mx, agree, flipped = bf16_against_f32(
+            torch, T, dict(params, layers={k: v[:depth] for k, v in
+                                           params["layers"].items()}),
+            dataclasses.replace(cfg, n_layers=depth), toks)
+        row["bf16_against_f32"].append(
+            {"layers": depth, "fro": fro, "max": mx, "argmax_agree": agree,
+             "routing_flipped": flipped})
+        say(f"  13 {arch} bf16 against float32 ({depth} layers, same "
+            f"weights and tokens): relative Frobenius error {fro:.5f} "
+            f"(limit {LM_BF16_FRO}), max error / max |f32| {mx:.5f}, "
+            f"argmax agrees at {agree:.4f} of positions"
+            + (f", {flipped:.4f} of positions left out for a flipped "
+               "routing" if cfg.moe else ""))
+        if not fro <= LM_BF16_FRO:
+            failures.append(f"{arch}: bf16 against float32 relative error "
+                            f"{fro} at {depth} layers beyond {LM_BF16_FRO}")
+    Bd, steps, max_len = decode
+    step_ms, gen_ids, dpeak = lm_decode(torch, T, params, cfg, dev, Bd,
+                                        steps, max_len)
+    row.update(decode=[Bd, steps, max_len], decode_step_ms=step_ms,
+               decode_tok_s=Bd / step_ms * 1e3, decode_peak=dpeak)
+    say(f"  13 {arch} decode B={Bd}, {steps} greedy steps at positions "
+        f"{max_len - steps}..{max_len - 1} of a {max_len} cache (bf16): "
+        f"{step_ms:.3f} ms a step ({row['decode_tok_s']:.0f} tok/s), "
+        f"peak device memory {dpeak} B; first request's ids "
+        f"{gen_ids[0].tolist()}")
+    if not cfg.moe:
+        err = decode_equals_forward(torch, T, params, cfg, dev)
+        row["decode_vs_forward_f32"] = err
+        say(f"  13 {arch} float32 decode over {LM_F32_POSITIONS} positions "
+            f"equals the float32 forward within {LM_F32_TOL} (max abs "
+            f"difference {err:.3e})")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_smoke_on_card(torch, dev):
+    """13d: every SMOKE config, float32 compute, the card against the
+    CPU in this process: forward logits and aux, and 8 decode steps."""
+    from repro_torch import carry, configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map_specs
+
+    for arch in carry.LM_ARCHS:
+        cfg = dataclasses.replace(configs.get(arch).smoke_config,
+                                  compute_dtype=torch.float32)
+        params = lm_params(torch, T, cfg, dev)
+        host = {k: (to_cpu(v) if isinstance(v, dict) else v.cpu())
+                for k, v in params.items()}
+        gen = torch.Generator().manual_seed(DATA_SEED)
+        toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+        card, aux = T.forward(params, toks.to(dev), cfg)
+        cpu, caux = T.forward(host, toks, cfg)
+        err = held(torch, f"{arch} smoke forward", card, cpu, LM_SMOKE_TOL)
+        held(torch, f"{arch} smoke aux", aux, caux, LM_SMOKE_TOL)
+
+        def zeros(d):
+            return tree_map_specs(
+                lambda s: torch.zeros(s.shape, dtype=s.dtype, device=d),
+                T.cache_specs(cfg, 2, LM_SMOKE_STEPS))
+        cc, hc = zeros(dev), zeros("cpu")
+        for t in range(LM_SMOKE_STEPS):
+            lens = torch.full((2,), t, dtype=torch.int64)
+            a, _ = T.decode_step(params, cc, toks[:, t].to(dev),
+                                 lens.to(dev), cfg)
+            b, _ = T.decode_step(host, hc, toks[:, t], lens, cfg)
+            err = max(err, held(torch, f"{arch} smoke decode step {t}", a,
+                                b, LM_SMOKE_TOL))
+        say(f"  13d {arch} SMOKE (float32): the card equals the CPU within "
+            f"{LM_SMOKE_TOL} over the forward, aux and {LM_SMOKE_STEPS} "
+            f"decode steps (max abs difference {err:.3e})")
+
+
+def lm_cli():
+    """13e: the serving CLI at qwen2-7b's full CONFIG, in its own
+    process on the card; its JSON summary."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_lm"]
+                         + LM_CLI, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        say(f"  13e | {line}")
+    check(out.returncode == 0, f"serve_lm exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    summary = json.loads(out.stdout.splitlines()[-1])
+    check(summary["ok"] and summary["device"] != "cpu",
+          f"serve_lm: {summary}")
+    say(f"  13e python -m repro_torch.launch.serve_lm {' '.join(LM_CLI)}: "
+        f"exit 0 in {wall:.1f} s (process start and weights included)")
+    return summary
+
+
+def phase_lm(torch, build, dev=None):
+    """Phase 13 on ``dev`` (card 0): the LMs' serving path. Returns the
+    kernel launches of the phase (all 0: the path runs none of them)."""
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    say("== phase 13: the decoder-only LMs (full CONFIG widths, forward "
+        "only)")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "phase 13: TF32 matmuls are on")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    say(f"  13 free device memory at the start: {free} of {total} B")
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # bf16 products accumulate in float32, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    build.reset_launches()
+    failures, rows = [], []
+    try:
+        for run in LM_RUNS:
+            rows.append(lm_full(torch, *run, dev, failures))
+        lm_smoke_on_card(torch, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    say("  13 launches " + json.dumps(launches))
+    check(not any(launches.values()),
+          f"phase 13: the LM path launched a partitioner kernel: {launches}")
+    torch.cuda.empty_cache()
+    rows.append({"cli": lm_cli()})
+    say("  13 record " + json.dumps(rows))
+    check(not failures, "phase 13: " + "; ".join(failures))
+    say(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def hubs_only(torch, api, build) -> int:
     """``--hubs-only``: phases 1 and 9, both hub graphs at 2^20."""
     smi = phase_environment(torch, build)
@@ -3620,6 +3998,14 @@ def models_only(torch, api, build) -> int:
     return 0
 
 
+def lm_only(torch, build) -> int:
+    """``--lm-only``: phases 1 and 13."""
+    smi = phase_environment(torch, build)
+    phase_lm(torch, build)
+    say(smi)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3637,6 +4023,9 @@ def main(argv=None) -> int:
                          "(no contract line)")
     ap.add_argument("--models-only", action="store_true",
                     help="only build the kernels and run phase 12 (no "
+                         "contract line)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="only build the kernels and run phase 13 (no "
                          "contract line)")
     args = ap.parse_args(argv)
 
@@ -3673,6 +4062,8 @@ def main(argv=None) -> int:
         return mesh_only(torch, api, build)
     if args.models_only:
         return models_only(torch, api, build)
+    if args.lm_only:
+        return lm_only(torch, build)
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     smi = phase_environment(torch, build)
@@ -3714,6 +4105,7 @@ def main(argv=None) -> int:
     kernels[4:4] = dist_rows
     by_path["mesh"] = phase_mesh(torch, api, g, lp_run, *dist_walls)
     by_path["placement"] = phase_models(torch, api, build, g)
+    by_path["lm"] = phase_lm(torch, build)
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

@@ -71,9 +71,15 @@ def request_from_fields(fields: Mapping[str, Any]):
     return PartitionRequest(graph=graph, **f)
 
 
+LM_ARCHS = ("qwen2-7b", "gemma-2b", "stablelm-12b", "granite-moe-1b-a400m",
+            "arctic-480b")
+
+
 def _model_module(arch_id: str):
-    from .models import dlrm
+    from .models import dlrm, transformer
     from .models.gnn import dimenet, gat, nequip, schnet
+    if arch_id in LM_ARCHS:
+        return transformer
     return {"gat-cora": gat, "schnet": schnet, "nequip": nequip,
             "dimenet": dimenet, "dlrm-rm2": dlrm}[arch_id]
 
@@ -108,6 +114,13 @@ def config_of(arch_id: str, fields: Mapping[str, Any]):
     return cls(**kw)
 
 
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # numpy has no such type
+        a = a.astype(np.float32)           # exact
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def model_from(arch_id: str, arrays: Mapping[str, Any],
                fields: Mapping[str, Any], device=None) -> Tuple[Dict, Any]:
     """``(params, cfg)`` of the port for a reference parameter tree
@@ -128,9 +141,7 @@ def model_from(arch_id: str, arrays: Mapping[str, Any],
             if tuple(a.shape) != tuple(spec_tree.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {a.shape}, the "
                                  f"spec's is {spec_tree.shape}")
-            if a.dtype.name == "bfloat16":     # numpy has no such type
-                a = a.astype(np.float32)           # exact
-            return torch.tensor(a, dtype=spec_tree.dtype, device=device)
+            return _tensor(a, spec_tree.dtype, device)
         if set(tree) != set(spec_tree):
             raise KeyError(f"{'/'.join(path) or 'params'}: keys "
                            f"{sorted(set(tree) ^ set(spec_tree))} differ "
@@ -138,6 +149,25 @@ def model_from(arch_id: str, arrays: Mapping[str, Any],
         return {k: build(v, tree[k], path + (k,))
                 for k, v in spec_tree.items()}
     return build(specs, arrays, ()), cfg
+
+
+def cache_from(arrays: Mapping[str, Any], device=None) -> Dict:
+    """A reference KV cache (``{"k", "v"}``, numpy arrays of (L, B,
+    S_max, Hkv, hd), bf16 included) as the port's tensors on ``device``
+    (the card by default), each in its array's dtype, so that decoding
+    resumes on the reference's state."""
+    from .kernels.dispatch import resolve_device
+
+    device = resolve_device(device)
+    if set(arrays) != {"k", "v"}:
+        raise KeyError(f"a KV cache has the keys k and v, not "
+                       f"{sorted(arrays)}")
+    k, v = np.asarray(arrays["k"]), np.asarray(arrays["v"])
+    if k.shape != v.shape or k.ndim != 5:
+        raise ValueError(f"cache k {k.shape} and v {v.shape}: both must be "
+                         "(L, B, S_max, Hkv, hd)")
+    return {n: _tensor(a, torch_dtype(a.dtype), device)
+            for n, a in (("k", k), ("v", v))}
 
 
 def graph_batch_from(fields: Mapping[str, Any], device=None):

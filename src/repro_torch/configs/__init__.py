@@ -1,8 +1,6 @@
 """Architecture registry — port of ``repro.configs``: one module per
-architecture registers an ``ArchEntry``. This slice holds the four GNNs
-and DLRM (``_MODULES``); the shape sets are all three of the
-reference's, ``LM_SHAPES`` as data only until the transformer is
-ported."""
+architecture registers an ``ArchEntry``: the five LMs, the four GNNs and
+DLRM (``_MODULES``), with the reference's three shape sets."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,7 +41,10 @@ def register(entry: ArchEntry) -> ArchEntry:
     return entry
 
 
-_MODULES = ["schnet", "nequip", "gat_cora", "dimenet", "dlrm_rm2"]
+_MODULES = [
+    "arctic_480b", "granite_moe_1b", "gemma_2b", "stablelm_12b", "qwen2_7b",
+    "schnet", "nequip", "gat_cora", "dimenet", "dlrm_rm2",
+]
 
 
 def load_all() -> Dict[str, ArchEntry]:

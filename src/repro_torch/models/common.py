@@ -73,12 +73,22 @@ def _std(spec: ParamSpec) -> float:
     return spec.scale / math.sqrt(fan_in)
 
 
+# a leaf of another dtype than float32 is drawn this many float32
+# normals at a time (arctic's bf16 e_in is 8.93e9 elements a layer)
+DRAW_CHUNK = 1 << 26
+
+
 def init_params(specs: SpecTree, generator: torch.Generator,
                 device=None) -> ParamTree:
     """Parameters of ``specs`` on ``device`` (the card by default):
     zeros, ones, or normals of the reference's scale, drawn one leaf
     after the other in the reference's leaf order on ``generator``'s
-    device (a CUDA generator draws on the card)."""
+    device (a CUDA generator draws on the card).
+
+    A float32 leaf is one draw of its shape. A leaf of another dtype is
+    drawn in float32 ``DRAW_CHUNK`` elements at a time along its
+    flattened order, each slice scaled and rounded into the leaf, so it
+    never needs a float32 copy of itself whole."""
     device = resolve_device(device)
 
     def one(spec: ParamSpec) -> torch.Tensor:
@@ -86,17 +96,30 @@ def init_params(specs: SpecTree, generator: torch.Generator,
             return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        if spec.dtype != torch.float32:
+            out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+            flat = out.view(-1)
+            for i in range(0, flat.numel(), DRAW_CHUNK):
+                n = min(DRAW_CHUNK, flat.numel() - i)
+                x = torch.randn((n,), generator=generator,
+                                dtype=torch.float32, device=generator.device)
+                flat[i:i + n] = x.mul_(_std(spec))
+            return out
         x = torch.randn(spec.shape, generator=generator,
                         dtype=torch.float32, device=generator.device)
         return (x.mul_(_std(spec))).to(device=device, dtype=spec.dtype)
 
-    drawn = {path: one(s) for path, s in spec_leaves(specs)}
+    return _tree_of(specs, {path: one(s) for path, s in spec_leaves(specs)})
 
-    def build(tree, path):
-        if is_spec(tree):
-            return drawn[path]
-        return {k: build(v, path + (k,)) for k, v in tree.items()}
-    return build(specs, ())
+
+def _tree_of(specs: SpecTree, leaves: Dict, path=()) -> Any:
+    """``specs``' nested dicts with ``leaves[path]`` at each spec. (A
+    module function: a nested recursive one would sit in a reference
+    cycle with ``leaves``, which would then outlive the tree until the
+    cycle collector ran: gigabytes on the card.)"""
+    if is_spec(specs):
+        return leaves[path]
+    return {k: _tree_of(v, leaves, path + (k,)) for k, v in specs.items()}
 
 
 def param_count(specs: SpecTree) -> int:

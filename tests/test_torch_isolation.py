@@ -324,3 +324,31 @@ def test_model_and_placement_entry_points_raise_without_cuda():
     out = _run(code)
     assert out.returncode == 0, out.stderr + out.stdout
     assert out.stdout.strip().endswith("ok")
+
+
+def test_modules_walked_include_the_transformer_and_lm_serving():
+    mods = _modules()
+    for m in ("repro_torch.models.transformer", "repro_torch.launch.serve_lm",
+              "repro_torch.configs.qwen2_7b", "repro_torch.configs.gemma_2b",
+              "repro_torch.configs.stablelm_12b",
+              "repro_torch.configs.granite_moe_1b",
+              "repro_torch.configs.arctic_480b"):
+        assert m in mods
+
+
+def test_serve_lm_cli_refuses_without_cuda_unless_cpu_is_asked_for():
+    """The LM serving CLI runs on the card by default: without one it
+    exits 2 and prints nothing; ``--device cpu`` serves on the CPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+           "gemma-2b", "--config", "smoke", "--batch", "2", "--prompt-len",
+           "3", "--gen-len", "4", "--max-len", "8"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    out = subprocess.run(cmd + ["--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.splitlines()[-1])["ok"]

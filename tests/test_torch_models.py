@@ -29,6 +29,7 @@ from repro import configs as ref_configs  # noqa: E402
 from repro.launch import gnn_data as ref_gnn_data  # noqa: E402
 from repro.models import common as ref_common  # noqa: E402
 from repro.models import dlrm as ref_dlrm  # noqa: E402
+from repro.models import transformer as ref_transformer  # noqa: E402
 from repro.models.gnn import common as ref_gcommon  # noqa: E402
 from repro.models.gnn import dimenet as ref_dimenet  # noqa: E402
 from repro.models.gnn import gat as ref_gat  # noqa: E402
@@ -36,17 +37,20 @@ from repro.models.gnn import nequip as ref_nequip  # noqa: E402
 from repro.models.gnn import schnet as ref_schnet  # noqa: E402
 from repro_torch import carry, configs  # noqa: E402
 from repro_torch.launch import gnn_data  # noqa: E402
-from repro_torch.models import common, dlrm  # noqa: E402
+from repro_torch.models import common, dlrm, transformer  # noqa: E402
 from repro_torch.models.gnn import common as gcommon  # noqa: E402
 from repro_torch.models.gnn import dimenet, gat, nequip, schnet  # noqa: E402
 
 CPU = "cpu"
-ARCHS = ["gat-cora", "schnet", "nequip", "dimenet", "dlrm-rm2"]
+LMS = list(carry.LM_ARCHS)
+ARCHS = ["gat-cora", "schnet", "nequip", "dimenet", "dlrm-rm2"] + LMS
 GNNS = ARCHS[:4]
 REF = {"gat-cora": ref_gat, "schnet": ref_schnet, "nequip": ref_nequip,
-       "dimenet": ref_dimenet, "dlrm-rm2": ref_dlrm}
+       "dimenet": ref_dimenet, "dlrm-rm2": ref_dlrm,
+       **{a: ref_transformer for a in LMS}}
 PORT = {"gat-cora": gat, "schnet": schnet, "nequip": nequip,
-        "dimenet": dimenet, "dlrm-rm2": dlrm}
+        "dimenet": dimenet, "dlrm-rm2": dlrm,
+        **{a: transformer for a in LMS}}
 TOL = {"gat-cora": 1e-5, "schnet": 1e-5, "dlrm-rm2": 1e-5,
        "nequip": 1e-4, "dimenet": 1e-4}
 REF_ENTRIES = ref_configs.load_all()
@@ -324,8 +328,18 @@ def test_dimenet_host_helpers_bit_identical():
               ref_dimenet.legendre_jax(l_max, c), 1e-5)
 
 
+def ref_spec_leaves(specs, path=()):
+    """The reference spec tree's ``(path, spec)`` pairs, keys sorted."""
+    if ref_common.is_spec(specs):
+        return [(path, specs)]
+    return [leaf for k in sorted(specs)
+            for leaf in ref_spec_leaves(specs[k], path + (k,))]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_config_spec_trees_and_param_count_equal(arch):
+    """Every leaf of the nested spec trees (the LMs' ``layers/*`` too):
+    its path, shape, axes, init, scale and dtype."""
     for which in ("config", "smoke_config"):
         rcfg = getattr(REF_ENTRIES[arch], which)
         pcfg = getattr(configs.get(arch), which)
@@ -333,12 +347,45 @@ def test_full_config_spec_trees_and_param_count_equal(arch):
         specs = PORT[arch].build_specs(pcfg)
         assert common.param_count(specs) == \
             ref_common.param_count(ref_specs)
-        assert sorted(specs) == sorted(ref_specs)
-        for k, rs in ref_specs.items():
-            s = specs[k]
+        want = ref_spec_leaves(ref_specs)
+        got = common.spec_leaves(specs)
+        assert [p for p, _ in got] == [p for p, _ in want]
+        for (path, s), (_, rs) in zip(got, want):
             assert (s.shape, s.axes, s.init, s.scale) == \
-                (rs.shape, rs.axes, rs.init, rs.scale), k
-            assert s.dtype == carry.torch_dtype(rs.dtype), k
+                (rs.shape, rs.axes, rs.init, rs.scale), path
+            assert s.dtype == carry.torch_dtype(rs.dtype), path
+    if arch in LMS:
+        for batch, max_len, lc in ((8, 32768, False), (1, 524288, True)):
+            want = ref_transformer.cache_specs(rcfg, batch, max_len, lc)
+            got = transformer.cache_specs(pcfg, batch, max_len, lc)
+            for n in ("k", "v"):
+                assert (got[n].shape, got[n].axes, got[n].init) == \
+                    (want[n].shape, want[n].axes, want[n].init)
+                assert got[n].dtype == carry.torch_dtype(want[n].dtype)
+
+
+def test_lm_param_counts_equal_the_reference_and_its_bands():
+    """The reference's ``test_param_counts_match_assignment`` bands, and
+    the port's counts equal to the reference's."""
+    bands = {"arctic-480b": (4.0e11, 5.5e11),
+             "granite-moe-1b-a400m": (0.8e9, 1.6e9),
+             "gemma-2b": (2.0e9, 3.3e9), "stablelm-12b": (1.0e10, 1.45e10),
+             "qwen2-7b": (6.0e9, 8.5e9)}
+    for arch, (lo, hi) in bands.items():
+        count = common.param_count(
+            transformer.build_specs(configs.get(arch).config))
+        assert count == ref_common.param_count(ref_transformer.build_specs(
+            REF_ENTRIES[arch].config))
+        assert lo < count < hi, (arch, count)
+
+
+def test_registry_holds_ten_entries_and_forty_shapes():
+    entries = configs.load_all()
+    assert set(entries) == set(REF_ENTRIES) == set(ARCHS)
+    assert {e.kind for e in entries.values()} == {"lm", "gnn", "recsys"}
+    assert sum(len(e.shapes) for e in entries.values()) == 40
+    assert sorted(a for a, e in entries.items() if e.kind == "lm") == \
+        sorted(LMS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -467,6 +514,57 @@ def test_init_params_draws_from_the_generator():
             continue
         first = torch.randn(s.shape, generator=gen)
     assert torch.equal(first * common._std(s), a["ro_w1"])
+
+
+def test_init_params_draws_low_precision_leaves_in_slices(monkeypatch):
+    """A bf16 leaf with a leading (stack) axis is drawn ``DRAW_CHUNK``
+    float32 normals at a time, each slice scaled and rounded into it:
+    its spec's shape, dtype and scale, the same leaf from the same seed;
+    a float32 leaf is still one draw of its whole shape."""
+    monkeypatch.setattr(common, "DRAW_CHUNK", 1000)
+    bf16 = torch.bfloat16
+    specs = {"a": common.ParamSpec((3, 40, 50), ("stack", "embed", "mlp"),
+                                   dtype=bf16),
+             "b": common.ParamSpec((40, 30), ("embed", "mlp")),
+             "c": common.ParamSpec((7, 64), ("vocab", "embed"),
+                                   init="embed", scale=0.02, dtype=bf16)}
+
+    def draw(seed):
+        return common.init_params(specs, torch.Generator().manual_seed(seed),
+                                  device=CPU)
+    a, b, c = draw(0), draw(0), draw(1)
+    for k, s in specs.items():
+        assert tuple(a[k].shape) == s.shape and a[k].dtype == s.dtype
+        assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
+    # std = scale / sqrt(fan_in), fan_in = the leading axis (3)
+    assert abs(float(a["a"].float().std()) * np.sqrt(3) - 1.0) < 0.05
+    assert abs(float(a["c"].float().std()) / 0.02 - 1.0) < 0.1
+    gen = torch.Generator().manual_seed(0)
+    want_a = torch.cat([(torch.randn(1000, generator=gen)
+                         * common._std(specs["a"])).to(bf16)
+                        for _ in range(6)]).reshape(3, 40, 50)
+    want_b = torch.randn((40, 30), generator=gen) * common._std(specs["b"])
+    want_c = (torch.randn(448, generator=gen) * 0.02).to(bf16)
+    assert torch.equal(a["a"], want_a)
+    assert torch.equal(a["b"], want_b)
+    assert torch.equal(a["c"], want_c.reshape(7, 64))
+
+
+def test_init_params_frees_its_leaves_with_the_tree():
+    """Dropping the tree frees its tensors at once, with the cycle
+    collector off: nothing of ``init_params`` holds them in a cycle."""
+    import gc
+    import weakref
+    specs = transformer.build_specs(configs.get("qwen2-7b").smoke_config)
+    gc.disable()
+    try:
+        params = common.init_params(specs, torch.Generator().manual_seed(0),
+                                    device=CPU)
+        leaf = weakref.ref(params["layers"]["wq"])
+        del params
+        assert leaf() is None
+    finally:
+        gc.enable()
 
 
 def test_dimenet_bessel_recurrence_holds_where_float32_loses_it():
