@@ -242,6 +242,31 @@ exits non-zero if any one fails:
      tokens per second and peak device memory for each model; no
      partitioner kernel may launch (the counts, zeroed just before, are
      printed). ``--lm-only`` runs phases 1 and 13 (no contract line).
+ 14. training (``repro_torch.train``: forward and backward through
+     autograd), TF32 off, bf16 products accumulated in float32: (a) GAT
+     at its full CONFIG trained with AdamW (lr 3e-3) for 20 steps on
+     12a's placed graph, labels the community of each placed id: the
+     loss finite and falling, the first step's loss and gradient norm
+     equal (1e-5 relative) to the same step on the input graph read
+     through ``perm``, printed beside 12a's kernel launches; (b)
+     gemma-2b's CONFIG at 2 layers, gradients with remat on and off
+     equal (1e-6 of each leaf's largest) and the peak memory lower with
+     it, then at full depth, AdamW, remat, B=2 x S=1024, 5 steps on one
+     repeated ``lm_batch`` (weights from ``lm_params``, lr 3e-5): the loss
+     falls;
+     (c) granite-moe-1b at full CONFIG, Adafactor, B=4 x S=512, 5 steps:
+     the loss falls and the aux loss's gradient reaches the router; (d)
+     one float32 AdamW step of every SMOKE config (the five LMs, GAT,
+     SchNet, NequIP, DimeNet, DLRM) and gemma-2b's at microbatches=2 on
+     the card against the CPU from the same state, at the CPU tests'
+     tolerances; (e) ``python -m repro_torch.launch.train --arch
+     gemma-2b --steps 20 --ckpt-dir D --ckpt-every 10``, then
+     ``--steps 30`` resuming at step 20, then ``python -m
+     repro_torch.launch.gnn_partitioned_training``: all exit 0, the
+     example's loss falls. Step times by CUDA events, tokens (nodes) per
+     second and peak device memory; no partitioner kernel may launch in
+     this process (the counts, zeroed just before, are printed).
+     ``--train-only`` runs phases 1, 12a and 14 (no contract line).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3578,10 +3603,15 @@ def other_placements(torch, sparse, dev):
             f"{out['experts_per_pod']}")
 
 
-def phase_models(torch, api, build, g0, dev=None):
-    """Phase 12 on ``dev`` (card 0). Returns the placement's launches."""
+def shuffled(g0):
+    """12a's input: phase 4's graph with its ids shuffled."""
     from repro_torch.graphs.format import permute
+    return permute(g0, np.random.default_rng(0).permutation(g0.n))[0]
 
+
+def phase_models(torch, api, build, g0, dev=None):
+    """Phase 12 on ``dev`` (card 0). Returns the placement's launches,
+    its input graph and the placement (phase 14 trains on it)."""
     t_phase = time.perf_counter()
     dev = dev or torch.device("cuda", 0)
     say("== phase 12: the placement engine and the models it places "
@@ -3589,16 +3619,15 @@ def phase_models(torch, api, build, g0, dev=None):
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "phase 12: TF32 matmuls are on")
-    g, _ = permute(g0, np.random.default_rng(0).permutation(g0.n))
+    g = shuffled(g0)
     plan, launches = place_gnn(torch, build, g, dev)
     gat_on_placement(torch, g, plan, dev)
-    del plan
     molecules(torch, dev)
     sparse = dlrm_phase(torch, dev)
     other_placements(torch, sparse, dev)
     torch.cuda.empty_cache()
     say(f"  phase 12 {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, g, plan
 
 
 # ---------------------------------------------------------------------------
@@ -3955,6 +3984,425 @@ def phase_lm(torch, build, dev=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training on the card
+# ---------------------------------------------------------------------------
+
+# 14a: the example's optimizer (AdamW, lr 3e-3) and steps on the placement
+TRAIN_GAT_STEPS = 20
+TRAIN_GAT_LR = 3e-3
+# 14b-c: tag, arch, optimizer, (B, S), steps; one lm_batch repeated, at
+# a tenth of OptConfig's lr: a first AdamW (or Adafactor) step moves each
+# weight by about lr x sign(g), which moves a 2048-wide contraction's
+# output by up to lr x 2048 of its scale. At the default 3e-4 gemma-2b's
+# loss went 10.65 -> 9.05 in the first step, then back up to 12.47 by
+# the fourth (an H100); five steps at 3e-5 move half as far as that
+# first step
+TRAIN_LM_LR = 3e-5
+TRAIN_LM_RUNS = (
+    ("14b", "gemma-2b", "adamw", (2, 1024), 5),
+    ("14c", "granite-moe-1b-a400m", "adafactor", (4, 512), 5),
+)
+TRAIN_REMAT_LAYERS = 2
+# gradients with remat on and off: the same ops, recomputed, within this
+# share of each leaf's largest |gradient|
+TRAIN_REMAT_SHARE = 1e-6
+# 14d: the CPU tests' tolerances (tests/test_torch_train_models.py):
+# gradients (here the first moment m = 0.1 g) as a share of each leaf's
+# largest value; the LMs' losses relative; the card sums the GNNs' and
+# DLRM's scatters and einsums in another order than the CPU, so their
+# losses are held at their forward tolerances (MODEL_TOL; NequIP's
+# differed by 1.2e-6 relative on an H100)
+TRAIN_LOSS_REL = 1e-6
+TRAIN_LM_SHARE = 1e-3
+TRAIN_MODEL_TOL = 1e-4
+TRAIN_SMOKE_ARCHS = ("qwen2-7b", "gemma-2b", "stablelm-12b",
+                     "granite-moe-1b-a400m", "arctic-480b", "gat-cora",
+                     "schnet", "nequip", "dimenet", "dlrm-rm2")
+# 14e: the training CLI twice on one checkpoint directory (the second run
+# resumes at step 20), then the partitioned-GAT example
+TRAIN_CLI = ["--arch", "gemma-2b", "--ckpt-every", "10"]
+
+
+def timed_steps(torch, step, state, batch, steps):
+    """``steps`` donated train steps; (state, losses, grad norms, ms a
+    step by CUDA events, peak device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, met = step(state, batch, donate=True)
+        e1.record()
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        ms.append(e0.elapsed_time(e1))
+    return state, losses, norms, ms, torch.cuda.max_memory_allocated()
+
+
+def falls(what, losses):
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{what}: the loss is not finite or did not fall: {losses}")
+
+
+def train_gat_on_placement(torch, g, plan, launches, dev):
+    """14a: GAT at its full CONFIG trained on 12a's placed graph; its
+    first step equals the same step on the input graph read through
+    ``perm``."""
+    from repro_torch import configs
+    from repro_torch.models.common import init_params, param_count
+    from repro_torch.models.gnn import gat
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.train.tree import tree_map
+
+    cfg = configs.get("gat-cora").config
+    n, N = g.n, g.n + 1
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    params = init_params(gat.build_specs(cfg), gen, device=dev)
+    perm = torch.as_tensor(plan.perm, device=dev)
+    # the example's labels: the community (n_classes ranges) of each
+    # placed id; a vertex of the input keeps its placed id's label
+    lab_pl = torch.zeros(N, dtype=torch.int64, device=dev)
+    lab_pl[:n] = torch.arange(n, device=dev) * cfg.n_classes // n
+    lab_in = torch.zeros_like(lab_pl)
+    lab_in[:n] = lab_pl[perm]
+    mask = torch.arange(N, device=dev) < n
+    feat = torch.randn((N, cfg.d_in), generator=gen, device=dev)
+
+    def batch(gr, x, lab):
+        return GraphBatch(
+            senders=torch.as_tensor(gr.arc_tails().astype(np.int32),
+                                    device=dev),
+            receivers=torch.as_tensor(gr.adjncy.astype(np.int32),
+                                      device=dev),
+            n_node=N, node_feat=x, labels=lab, node_mask=mask)
+    init, step = make_train_step(lambda p, b: gat.loss_fn(p, b, cfg),
+                                 OptConfig(lr=TRAIN_GAT_LR))
+    _, m_in = step(init(tree_map(torch.clone, params)),
+                   batch(g, feat, lab_in), donate=True)
+    feat_pl = torch.empty_like(feat)
+    feat_pl[perm] = feat[:n]
+    feat_pl[n] = feat[n]
+    del feat
+    _, losses, norms, ms, peak = timed_steps(
+        torch, step, init(params), batch(plan.graph, feat_pl, lab_pl),
+        TRAIN_GAT_STEPS)
+    tol = MODEL_TOL["gat-cora"]
+    l_in, n_in = float(m_in["loss"]), float(m_in["grad_norm"])
+    check(abs(losses[0] - l_in) <= tol * l_in
+          and abs(norms[0] - n_in) <= tol * n_in,
+          f"14a: the first step on the placement (loss {losses[0]}, grad "
+          f"norm {norms[0]}) differs from the input's through perm (loss "
+          f"{l_in}, grad norm {n_in}) beyond {tol} relative")
+    falls("14a gat on the placement", losses)
+    step_ms = float(np.median(ms[1:]))
+    say(f"  14a gat-cora CONFIG ({param_count(gat.build_specs(cfg))} "
+        f"parameters, d_in {cfg.d_in}, {cfg.n_heads} heads) on 12a's "
+        f"placed rgg2d {n} ({g.m} arcs), AdamW lr {TRAIN_GAT_LR}, "
+        f"{TRAIN_GAT_STEPS} steps on the repeated batch: loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; step {step_ms:.3f} ms "
+        f"(median after the first; first {ms[0]:.3f}), "
+        f"{N / step_ms * 1e3:.0f} nodes/s, peak device memory {peak} B; "
+        "placement launches "
+        + json.dumps({k: launches[k] for k in MAIN_PATH}))
+    say(f"  14a first step equals the input graph's through perm within "
+        f"{tol}: loss {losses[0]:.7f} / {l_in:.7f}, grad norm "
+        f"{norms[0]:.7f} / {n_in:.7f}")
+    return {"arch": "gat-cora", "steps": TRAIN_GAT_STEPS, "loss": losses,
+            "step_ms": ms, "nodes_per_s": N / step_ms * 1e3, "peak": peak}
+
+
+def lm_train_batch(torch, cfg, B, S, dev):
+    from repro_torch.train import data
+    return {"tokens": torch.as_tensor(
+        data.lm_batch(0, B, S, cfg.vocab, DATA_SEED)["tokens"], device=dev)}
+
+
+def grads_share(got, want):
+    """The largest share, over leaves, of |got - want| in the leaf's
+    largest |want|."""
+    from repro_torch.train.tree import leaves
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(leaves(got), leaves(want)))
+
+
+def remat_check(torch, T, dev):
+    """14b: gemma-2b's CONFIG at 2 layers: gradients with remat on and
+    off, and the peak memory of each."""
+    from repro_torch import configs
+    from repro_torch.train.trainer import value_and_grad
+
+    base = dataclasses.replace(configs.get("gemma-2b").config,
+                               n_layers=TRAIN_REMAT_LAYERS)
+    params = lm_params(torch, T, base, dev)
+    batch = lm_train_batch(torch, base, *TRAIN_LM_RUNS[0][3], dev)
+    out = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_bytes = torch.cuda.memory_allocated()
+        loss, grads = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg),
+                                     params, batch)
+        torch.cuda.synchronize()
+        out[remat] = (float(loss), grads,
+                      torch.cuda.max_memory_allocated() - held_bytes)
+    share = grads_share(out[True][1], out[False][1])
+    say(f"  14b gemma-2b CONFIG at {TRAIN_REMAT_LAYERS} layers, B x S = "
+        f"{batch['tokens'].shape[0]} x {batch['tokens'].shape[1]}: loss "
+        f"{out[True][0]:.6f} (remat on) / {out[False][0]:.6f} (off); "
+        f"gradients differ by at most {share:.3e} of a leaf's largest "
+        f"(limit {TRAIN_REMAT_SHARE}); peak above the weights "
+        f"{out[True][2]} B with remat, {out[False][2]} B without")
+    check(share <= TRAIN_REMAT_SHARE and out[True][0] == out[False][0],
+          f"14b: remat changed the loss or the gradients ({share})")
+    check(out[True][2] < out[False][2],
+          f"14b: remat did not lower the peak memory ({out[True][2]} B "
+          f"against {out[False][2]} B)")
+    return {"remat_share": share, "peak_remat": out[True][2],
+            "peak_no_remat": out[False][2]}
+
+
+def train_lm(torch, T, tag, arch, opt, shape, steps, dev):
+    """14b-c: one LM at its full CONFIG trained ``steps`` steps on one
+    repeated ``lm_batch``."""
+    from repro_torch import configs
+    from repro_torch.models.common import param_count
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import make_train_step, value_and_grad
+    from repro_torch.train.tree import leaves
+
+    cfg = configs.get(arch).config
+    B, S = shape
+    n = param_count(T.build_specs(cfg))
+    free = torch.cuda.mem_get_info(dev)[0]
+    say(f"  {tag} {arch} CONFIG: {n} parameters; float32 weights, gradients "
+        f"and {opt} state {n * 4 * (4 if opt == 'adamw' else 2)} B at most "
+        f"against {free} B free")
+    params = lm_params(torch, T, cfg, dev)
+    batch = lm_train_batch(torch, cfg, B, S, dev)
+    row = {"arch": arch, "optimizer": opt, "batch": [B, S],
+           "remat": cfg.remat, "params": n}
+    if cfg.moe:
+        _, grads = value_and_grad(lambda p, b: T.forward(p, b, cfg)[1],
+                                  params, batch["tokens"])
+        router = float(grads["layers"]["router"].abs().max())
+        del grads
+        check(router > 0, f"{arch}: the aux loss's gradient on the router "
+              "is zero")
+        row["aux_router_grad_max"] = router
+        say(f"  {tag} {arch}: the aux loss's gradient reaches the router "
+            f"(largest |gradient| {router:.3e})")
+    init, step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg),
+                                 OptConfig(name=opt, lr=TRAIN_LM_LR))
+    state = init(params)
+    del params
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    state, losses, _, ms, peak = timed_steps(torch, step, state, batch,
+                                             steps)
+    falls(f"{tag} {arch}", losses)
+    step_ms = float(np.median(ms[1:]))
+    row.update(loss=losses, step_ms=ms, state_bytes=state_bytes, peak=peak,
+               tokens_per_s=B * S / step_ms * 1e3)
+    say(f"  {tag} {arch} CONFIG, {opt} lr {TRAIN_LM_LR}, remat {cfg.remat}, "
+        f"B x S = {B} x {S}, "
+        f"{steps} steps on one repeated batch: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; step {step_ms:.1f} ms (median after the first; "
+        f"first {ms[0]:.1f}), {row['tokens_per_s']:.0f} tok/s; state "
+        f"{state_bytes} B, peak device memory {peak} B")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def smoke_inputs(torch, arch):
+    """(params, loss fn, batch) of an arch's SMOKE config on the CPU:
+    float32 compute, weights from ``DATA_SEED``, the training CLI's
+    batches."""
+    from repro_torch import carry, configs
+    from repro_torch.launch import train as cli
+    from repro_torch.models.common import init_params
+
+    entry = configs.get(arch)
+    cfg = entry.smoke_config
+    if entry.kind == "lm":
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        loss, specs, mk = cli.make_lm_pipeline(cfg, 2, 16, DATA_SEED, "cpu")
+    elif entry.kind == "recsys":
+        loss, specs, mk = cli.make_dlrm_pipeline(cfg, 64, DATA_SEED, "cpu")
+    else:
+        loss, specs, mk = cli.make_gnn_pipeline(entry, cfg, DATA_SEED, "cpu")
+    params = init_params(specs, torch.Generator().manual_seed(DATA_SEED),
+                         device="cpu")
+    share = TRAIN_LM_SHARE if arch in carry.LM_ARCHS else TRAIN_MODEL_TOL
+    return params, loss, mk(0), share
+
+
+def to_device(torch, batch, dev):
+    if isinstance(batch, dict):
+        return {k: v.to(dev) for k, v in batch.items()}
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).to(dev)
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)})
+
+
+def adam_step_held(what, got, want, lr, share):
+    """One AdamW step's state, card against CPU: moments and parameters
+    (``tests/test_torch_train_models.py``'s rules: m and v as the
+    gradients, v at twice the share; a parameter within 1e-6 of its
+    leaf's largest |value| where |g| passes ``share`` of the leaf's
+    largest, within 2 lr elsewhere: Adam's first step is about lr x
+    sign(g)). Returns the moments' largest share of their allowance."""
+    from repro_torch.train.tree import leaves_with_paths
+
+    def paths(t):
+        return {p: v.detach().cpu().float() for p, v in leaves_with_paths(t)}
+    worst = 0.0
+    for name, sh in (("m", share), ("v", 2 * share)):
+        g, w = paths(got["opt"][name]), paths(want["opt"][name])
+        for p in w:
+            err = float((g[p] - w[p]).abs().max())
+            lim = sh * float(w[p].abs().max())
+            worst = max(worst, err / max(lim, 1e-30))
+            check(err <= lim + 1e-30, f"{what} {name}/{'/'.join(p)}: "
+                  f"{err} beyond {sh} x its largest")
+    g, w = paths(got["params"]), paths(want["params"])
+    m = paths(want["opt"]["m"])
+    for p in w:
+        tight = 1e-6 * max(float(w[p].abs().max()), 1.0)
+        err = (g[p] - w[p]).abs()
+        big = m[p].abs() > share * float(m[p].abs().max())
+        check(float(err.masked_fill(~big, 0).max()) <= tight,
+              f"{what} params/{'/'.join(p)}: beyond {tight} where |g| is "
+              "large")
+        check(float(err.max()) <= 2 * lr + tight,
+              f"{what} params/{'/'.join(p)}: beyond 2 lr")
+    return worst
+
+
+def smoke_steps_on_card(torch, dev):
+    """14d: one float32 AdamW step of every SMOKE config on the card
+    against the same step on the CPU from the same state; gemma-2b also
+    at microbatches=2."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.train.tree import tree_map
+
+    cases = [(a, 1) for a in TRAIN_SMOKE_ARCHS] + [("gemma-2b", 2)]
+    for arch, mb in cases:
+        params, loss, batch, share = smoke_inputs(torch, arch)
+        init, step = make_train_step(loss, OptConfig(), microbatches=mb)
+        want, wm = step(init(params), batch)
+        got, gm = step(init(tree_map(lambda t: t.to(dev), params)),
+                       to_device(torch, batch, dev))
+        what = f"14d {arch}" + (f" microbatches={mb}" if mb > 1 else "")
+        l_got, l_want = float(gm["loss"]), float(wm["loss"])
+        n_got, n_want = float(gm["grad_norm"]), float(wm["grad_norm"])
+        rel = MODEL_TOL.get(arch, TRAIN_LOSS_REL)
+        check(abs(l_got - l_want) <= rel * abs(l_want)
+              and abs(n_got - n_want) <= share * n_want,
+              f"{what}: loss {l_got} / {l_want} or grad norm {n_got} / "
+              f"{n_want} beyond tolerance")
+        worst = adam_step_held(what, got, want, OptConfig().lr, share)
+        say(f"  {what} (float32): one AdamW step on the card equals the "
+            f"CPU's (loss {l_got:.7f} / {l_want:.7f}, grad norm "
+            f"{n_got:.6f} / {n_want:.6f}; moments at {worst:.3f} of their "
+            f"allowance, share {share})")
+
+
+def run_cli(module, args, what):
+    """``python -m module args`` in its own process on the card: its
+    output lines."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    for line in out.stdout.splitlines():
+        say(f"  {what} | {line}")
+    check(out.returncode == 0, f"{module} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    say(f"  {what} python -m {module} {' '.join(args)}: exit 0 in "
+        f"{wall:.1f} s (process start included)")
+    return out.stdout.splitlines()
+
+
+def train_clis():
+    """14e: the training CLI resumes from its checkpoints; the example
+    trains on its placement."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        first = run_cli("repro_torch.launch.train", TRAIN_CLI + [
+            "--steps", "20", "--ckpt-dir", d], "14e")
+        again = run_cli("repro_torch.launch.train", TRAIN_CLI + [
+            "--steps", "30", "--ckpt-dir", d], "14e")
+        check(sorted(os.listdir(d)) == ["step_00000010", "step_00000020",
+                                         "step_00000030"],
+              f"14e: checkpoints {sorted(os.listdir(d))}")
+    steps = [int(x.split()[1]) for x in again if x.startswith("  step")]
+    check(first[1].split()[1] == "0" and steps[0] == 20,
+          f"14e: the second run did not resume at step 20 ({steps})")
+    ex = run_cli("repro_torch.launch.gnn_partitioned_training", [], "14e")
+    trail = [float(x) for x in ex[-1].split("loss: ")[1].split(" -> ")]
+    falls("14e the example", trail)
+    check("on cpu" not in ex[-1], "14e: the example ran on the CPU")
+    say("  14e the second run resumed at step 20 from the checkpoint of "
+        "the first; the example's loss fell")
+
+
+def phase_train(torch, build, smi, g, plan, place_launches, dev=None):
+    """Phase 14 on ``dev`` (card 0): training. Returns the kernel
+    launches of the phase's own process (all 0: training launches none
+    of them; the placement it trains on launched ``place_launches``)."""
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    say(f"== phase 14: training on the card (forward and backward; {smi})")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "phase 14: TF32 matmuls are on")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # bf16 products accumulate in float32, as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    build.reset_launches()
+    rows = []
+    try:
+        rows.append(train_gat_on_placement(torch, g, plan, place_launches,
+                                           dev))
+        torch.cuda.empty_cache()
+        rows.append(remat_check(torch, T, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for run in TRAIN_LM_RUNS:
+            rows.append(train_lm(torch, T, *run, dev))
+        smoke_steps_on_card(torch, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    say("  14 launches " + json.dumps(launches))
+    check(not any(launches.values()),
+          f"phase 14: training launched a partitioner kernel: {launches}")
+    torch.cuda.empty_cache()
+    train_clis()
+    say("  14 record " + json.dumps(rows))
+    say(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def hubs_only(torch, api, build) -> int:
     """``--hubs-only``: phases 1 and 9, both hub graphs at 2^20."""
     smi = phase_environment(torch, build)
@@ -3998,6 +4446,17 @@ def models_only(torch, api, build) -> int:
     return 0
 
 
+def train_only(torch, api, build) -> int:
+    """``--train-only``: phases 1, 12a (the placement) and 14."""
+    smi = phase_environment(torch, build)
+    dev = torch.device("cuda", 0)
+    g = shuffled(api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17).materialize())
+    plan, launches = place_gnn(torch, build, g, dev)
+    phase_train(torch, build, smi, g, plan, launches, dev)
+    say(smi)
+    return 0
+
+
 def lm_only(torch, build) -> int:
     """``--lm-only``: phases 1 and 13."""
     smi = phase_environment(torch, build)
@@ -4027,6 +4486,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="only build the kernels and run phase 13 (no "
                          "contract line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only build the kernels and run phases 12a (the "
+                         "placement) and 14 (no contract line)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -4064,6 +4526,8 @@ def main(argv=None) -> int:
         return models_only(torch, api, build)
     if args.lm_only:
         return lm_only(torch, build)
+    if args.train_only:
+        return train_only(torch, api, build)
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     smi = phase_environment(torch, build)
@@ -4104,8 +4568,12 @@ def main(argv=None) -> int:
     by_path.update(dist_paths)
     kernels[4:4] = dist_rows
     by_path["mesh"] = phase_mesh(torch, api, g, lp_run, *dist_walls)
-    by_path["placement"] = phase_models(torch, api, build, g)
+    by_path["placement"], g_placed, plan = phase_models(torch, api, build,
+                                                        g)
     by_path["lm"] = phase_lm(torch, build)
+    by_path["train"] = phase_train(torch, build, smi, g_placed, plan,
+                                   by_path["placement"])
+    del g_placed, plan
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

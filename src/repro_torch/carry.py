@@ -9,7 +9,10 @@ are among its fields) and a request (its fields: ``backend`` carries the
 routing of the distributed engine's collectives, ``dist-grid`` being the
 reference's ``use_grid=True``). Tests hand both packages the same input, and the
 serving tests the same traffic, through these, without this package
-importing the reference.
+importing the reference. The models' weights cross by spec key
+(``model_from``), a KV cache (``cache_from``), and an optimizer or
+train state (``opt_state_from``, ``train_state_from``) with them, so
+both packages train on from the same state.
 """
 from __future__ import annotations
 
@@ -195,3 +198,69 @@ def dlrm_batch_from(batch: Mapping[str, Any], device=None) -> Dict:
     device = resolve_device(device)
     return {k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in batch.items()}
+
+
+def opt_state_from(opt_name: str, arrays: Mapping[str, Any],
+                   params) -> Dict:
+    """A reference optimizer state (numpy leaves: AdamW ``{"m", "v",
+    "step"}``, Adafactor ``{"slots", "step"}``) as the port's, next to
+    the port's ``params`` (its moments float32 on their device, ``step``
+    int32). Every moment must match its parameter: ``m`` / ``v`` its
+    shape, an Adafactor slot ``{"v"}`` its shape or ``{"vr", "vc"}`` its
+    row and column shapes."""
+    from .train.optimizer import slots_of
+    from .train.tree import leaves_with_paths, unflatten
+
+    flat = leaves_with_paths(params)
+    dev = flat[0][1].device
+
+    def moment(a, shape, what):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{what}: shape {a.shape}, want {tuple(shape)}")
+        return _tensor(a, torch.float32, dev)
+
+    if opt_name == "adamw":
+        out = {}
+        for n in ("m", "v"):
+            got = leaves_with_paths(arrays[n])
+            if [q for q, _ in got] != [q for q, _ in flat]:
+                raise KeyError(f"{n}: its leaves are not the parameters'")
+            out[n] = unflatten(params, [
+                moment(a, p.shape, f"{n}/{'/'.join(path)}")
+                for (path, p), (_, a) in zip(flat, got)])
+    elif opt_name == "adafactor":
+        slots = []
+        for (path, p), s in zip(flat, slots_of(params, arrays["slots"])):
+            what = "slots/" + "/".join(path)
+            shapes = ({"v": p.shape} if set(s) == {"v"} else
+                      {"vr": p.shape[:-1],
+                       "vc": tuple(p.shape[:-2]) + tuple(p.shape[-1:])})
+            if set(s) != set(shapes):
+                raise KeyError(f"{what}: keys {sorted(s)}")
+            slots.append({k: moment(s[k], shp, f"{what}/{k}")
+                          for k, shp in shapes.items()})
+        out = {"slots": unflatten(params, slots)}
+    else:
+        raise ValueError(f"unknown optimizer {opt_name!r}")
+    out["step"] = _tensor(arrays["step"], torch.int32, dev)
+    return out
+
+
+def train_state_from(arch_id: str, opt_name: str,
+                     arrays: Mapping[str, Any], fields: Mapping[str, Any],
+                     device=None) -> Tuple[Dict, Any]:
+    """``(state, cfg)``: a reference train state (``{"params", "opt",
+    "step", "nan_skips"}`` with numpy leaves) and config fields as the
+    port's, on ``device`` (the card by default), so both packages train
+    on from the same state."""
+    from .train.tree import leaves
+
+    params, cfg = model_from(arch_id, arrays["params"], fields,
+                             device=device)
+    dev = leaves(params)[0].device
+    return {"params": params,
+            "opt": opt_state_from(opt_name, arrays["opt"], params),
+            "step": _tensor(arrays["step"], torch.int32, dev),
+            "nan_skips": _tensor(arrays["nan_skips"], torch.int32, dev)
+            }, cfg

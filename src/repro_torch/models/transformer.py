@@ -1,13 +1,17 @@
 """Decoder-only transformer LM: dense + MoE, GQA/MQA, RoPE, GLU FFNs —
-port of ``repro.models.transformer``, forward only (prefill, loss value,
-KV-cache decode).
+port of ``repro.models.transformer`` (prefill, loss with its gradient
+through autograd, KV-cache decode).
 
 One definition serves all five LM architectures. Parameters are the
 reference's spec tree: the layers stacked under ``params["layers"]``
 with a leading layer axis, so a reference tree crosses over key for key
-(``repro_torch.carry.model_from``). ``scan_layers`` and ``remat`` are
-kept as fields; here both settings of each run the same loop over
-``params["layers"][key][li]`` and give the same numbers.
+(``repro_torch.carry.model_from``). ``forward`` takes each stacked leaf
+apart once (``torch.unbind``), so in backward each leaf's gradient is
+assembled once from its layers' slices. ``scan_layers`` is kept as a
+field; both settings run the same loop. ``remat`` is the reference's
+``jax.checkpoint`` of a layer: with it, and with autograd recording,
+each layer runs under ``torch.utils.checkpoint`` and is recomputed in
+backward; it changes no number.
 
 Numerics follow the reference's dtypes op by op:
 
@@ -26,7 +30,9 @@ Numerics follow the reference's dtypes op by op:
   ``F.silu`` rounds once and differs in ~4 of 10 bf16 values);
 * attention is the reference's blockwise running softmax in torch ops
   (``_blockwise_self_attention``): the (S, S) scores are never
-  materialised, only (B, S, Hkv, rep, blk) float32 a block;
+  materialised, only (B, S, Hkv, rep, blk) float32 a block, and under
+  autograd each block is recomputed in backward (the reference's
+  ``jax.checkpoint(body)``) rather than kept;
 * MoE routing is bit-identical given equal gates: ``lax.top_k`` order
   (descending, ties to the lower index) by a stable sort, the
   reference's stable argsort, left ``searchsorted``, capacity cut and
@@ -39,6 +45,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..dist.sharding import NULL_CTX, ShardCtx
 from .common import ParamSpec, act_fn, cross_entropy_loss, rms_norm, rope
@@ -73,7 +80,7 @@ class TransformerConfig:
     # numerics / memory
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: bool = True                # no effect on a forward-only path
+    remat: bool = True                # recompute each layer in backward
     scan_layers: bool = True          # both settings run the same loop
     logit_softcap: float = 0.0
 
@@ -174,6 +181,26 @@ def act(name: str):
 def _layer(params, li: int) -> Dict[str, torch.Tensor]:
     """Layer ``li``'s parameters (views into the stacked leaves)."""
     return {k: v[li] for k, v in params["layers"].items()}
+
+
+def _layers(params, n_layers: int):
+    """Every layer's parameters, each stacked leaf taken apart by one
+    ``torch.unbind``: in backward its gradient is then one stack of the
+    layers' gradients, where a ``v[li]`` a layer would give each layer a
+    full-size gradient of the leaf."""
+    parts = {k: torch.unbind(v) for k, v in params["layers"].items()}
+    return [{k: v[li] for k, v in parts.items()} for li in range(n_layers)]
+
+
+def _recorded(fn, *args):
+    """``fn(*args)``, recomputed in backward when autograd records it: a
+    tensor among ``args`` (or in a dict of them) requires grad."""
+    flat = [v for a in args
+            for v in (a.values() if isinstance(a, dict) else (a,))]
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _embed(params, tokens, cfg: TransformerConfig) -> torch.Tensor:
@@ -394,20 +421,28 @@ def _blockwise_self_attention(q, k, v, positions, cfg: TransformerConfig,
     l = torch.zeros((B, S, Hkv, rep), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, S, Hkv, rep, hd), dtype=torch.float32, device=dev)
     for j in range(0, S, blk):
-        kk, vv = k[:, j:j + blk], v[:, j:j + blk]
-        s = torch.einsum("bshrd,bkhd->bshrk", q32, kk.float()).mul_(scale)
-        mask = positions[:, :, None] >= positions[:, None, j:j + blk]
-        s.masked_fill_(~mask[:, :, None, None, :], -1e30)
-        m2 = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m2[..., None]).exp_()
-        corr = torch.exp(m - m2)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bshrk,bkhd->bshrd", p.to(cd).float(), vv.float())
-        m = m2
+        m, l, acc = _recorded(_attend_block, q32, k[:, j:j + blk],
+                              v[:, j:j + blk], positions,
+                              positions[:, j:j + blk], m, l, acc, scale, cd)
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(cd)
     out = out.reshape(B, S, H, hd)
     return ctx.constrain(out, "batch", "act_seq", None, None)
+
+
+def _attend_block(q32, kk, vv, q_pos, k_pos, m, l, acc, scale: float, cd):
+    """One KV block of the running softmax: the new (max, sum,
+    accumulator). Out of place throughout, since autograd keeps the
+    scores and probabilities it needs for backward."""
+    s = torch.einsum("bshrd,bkhd->bshrk", q32, kk.float()) * scale
+    mask = q_pos[:, :, None] >= k_pos[:, None, :]
+    s = torch.where(mask[:, :, None, None, :], s, -1e30)
+    m2 = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m2[..., None])
+    corr = torch.exp(m - m2)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bshrk,bkhd->bshrd", p.to(cd).float(), vv.float())
+    return m2, l, acc
 
 
 # ---------------------------------------------------------------------------
@@ -455,8 +490,11 @@ def forward(params, tokens, cfg: TransformerConfig,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li in range(cfg.n_layers):
-        x, a = _layer_fn(_layer(params, li), x, positions, cfg, ctx)
+    for lp in _layers(params, cfg.n_layers):
+        if cfg.remat:
+            x, a = _recorded(_layer_fn, lp, x, positions, cfg, ctx)
+        else:
+            x, a = _layer_fn(lp, x, positions, cfg, ctx)
         aux = aux + a
     logits = _logits(params, x, cfg, softcap=True)
     logits = ctx.constrain(logits, "batch", "seq", "vocab")
@@ -464,8 +502,9 @@ def forward(params, tokens, cfg: TransformerConfig,
 
 
 def loss_fn(params, batch, cfg: TransformerConfig, ctx: ShardCtx = NULL_CTX):
-    """Next-token cross entropy plus 0.01 x the MoE aux loss (the value
-    only: the port computes no gradients)."""
+    """Next-token cross entropy plus 0.01 x the MoE aux loss; both carry
+    their gradients (the aux loss's reaches the router through the
+    gates)."""
     logits, aux = forward(params, batch["tokens"], cfg, ctx)
     loss = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:],
                               mask=batch.get("mask", None))
@@ -508,8 +547,7 @@ def decode_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
     rows = torch.arange(B, device=x.device)
     live = (cache_len < S_max)[:, None, None]
     slot = torch.clamp(cache_len, max=S_max - 1)
-    for li in range(cfg.n_layers):
-        lp = _layer(params, li)
+    for li, lp in enumerate(_layers(params, cfg.n_layers)):
         ck, cv = cache["k"][li], cache["v"][li]
         h, (nk, nv) = attention(lp, rms_norm(x, lp["ln_attn"]), positions,
                                 cfg, ctx, kv_cache=(ck, cv),

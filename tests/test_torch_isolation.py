@@ -352,3 +352,29 @@ def test_serve_lm_cli_refuses_without_cuda_unless_cpu_is_asked_for():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.splitlines()[-1])["ok"]
+
+
+def test_modules_walked_include_training():
+    mods = _modules()
+    for m in ("repro_torch.train", "repro_torch.train.optimizer",
+              "repro_torch.train.trainer", "repro_torch.train.checkpoint",
+              "repro_torch.train.data", "repro_torch.train.tree",
+              "repro_torch.launch.train",
+              "repro_torch.launch.gnn_partitioned_training"):
+        assert m in mods
+
+
+@pytest.mark.parametrize("cli", ["train", "gnn_partitioned_training"])
+def test_training_clis_refuse_without_cuda(cli):
+    """Both training CLIs run on the card by default: without one they
+    exit 2 and print nothing (``--device cpu`` runs them: the test files
+    of training drive both on the CPU)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", f"repro_torch.launch.{cli}"]
+    if cli == "train":
+        cmd += ["--arch", "gat-cora", "--steps", "2"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
