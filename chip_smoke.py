@@ -267,6 +267,21 @@ exits non-zero if any one fails:
      second and peak device memory; no partitioner kernel may launch in
      this process (the counts, zeroed just before, are printed).
      ``--train-only`` runs phases 1, 12a and 14 (no contract line).
+ 15. the verifier (``repro_torch.analysis``) on the card:
+     ``python -m repro_torch.analysis --devices 1`` (the 19 entries
+     taped, the host ones on card 0, the ``dist_*`` ones on a one-rank
+     NCCL mesh; the collective, overflow, launch-limit and lint passes)
+     exits 0 with no finding; its LIM001 holds at every grid point
+     against the built libraries (the point count printed); every
+     allowlist entry it leaves unused is a kernel's plain version, which
+     the card does not run; and each of ``--fixture collective``
+     (two ranks: gloo ranks on the CPU where one card is visible),
+     ``overflow``, ``lint`` and ``limits`` exits 1. The five processes
+     run at once. Printed: the entries traced, the ops taped, the
+     collectives logged, the fused entries' kernel launches (counted in
+     the verifier's processes, which start at 0) and the phase's
+     seconds. ``--analysis-only`` runs phases 1 and 15 (no contract
+     line).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4403,6 +4418,92 @@ def phase_train(torch, build, smi, g, plan, place_launches, dev=None):
     return launches
 
 
+ANALYSIS_FIXTURES = ("collective", "overflow", "lint", "limits")
+ANALYSIS_NOTE = re.compile(
+    r"traced (\d+) entries \((\d+) ops taped, (\d+) collectives logged\), "
+    r"limits grid (\d+) points and (\d+) boundary points, linted (\d+) "
+    r"files")
+
+
+def phase_analysis(build) -> dict:
+    """Phase 15: the verifier on the card, repo and fixtures at once.
+    Returns its kernel launches, by kernel."""
+    import tempfile
+
+    say("== phase 15: the verifier")
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as d:
+        report = Path(d) / "analysis.json"
+        runs = {"repo": ["--json", str(report)]}
+        runs.update({fx: ["--fixture", fx] for fx in ANALYSIS_FIXTURES})
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis", "--devices", "1",
+             *extra], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for name, extra in runs.items()}
+        outs = {}
+        try:
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=300)
+                outs[name] = (proc.returncode, out, err)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        rc, out, err = outs["repo"]
+        for line in out.splitlines():
+            say(f"  15 repo | {line}")
+        check(rc == 0, f"phase 15: python -m repro_torch.analysis --devices "
+              f"1 exited {rc}: {err[-2000:]}")
+        data = json.loads(report.read_text())
+    check(data["ok"] and not data["findings"],
+          f"phase 15: the verifier left findings: {data['findings']}")
+    notes = data["notes"]
+    m = next(filter(None, (ANALYSIS_NOTE.match(n) for n in notes)), None)
+    check(m is not None, f"phase 15: no summary note in {notes}")
+    entries, ops, colls, grid, boundary, files = (int(x)
+                                                  for x in m.groups())
+    check(entries == 19 and ops > 0 and colls > 0,
+          f"phase 15: {entries} entries, {ops} ops, {colls} collectives")
+    check(not any("LIM001" in n and "not run" in n for n in notes),
+          "phase 15: LIM001 did not run on the card")
+    check(grid > 0 and boundary > 0,
+          f"phase 15: LIM001 {grid} and LIM002 {boundary} points")
+    unused = [n for n in out.splitlines() if "allowlist entry unused" in n]
+    check(all("src/repro_torch/kernels/" in n for n in unused),
+          f"phase 15: allowlist entries unused beyond the plain kernel "
+          f"versions: {unused}")
+    launches = json.loads(next(n for n in notes if n.startswith(
+        "kernel launches "))[len("kernel launches "):])
+    for fx in ANALYSIS_FIXTURES:
+        rc, out, err = outs[fx]
+        tail = out.strip().splitlines()[-1:]
+        say(f"  15 --fixture {fx}: exit {rc} {tail}")
+        check(rc == 1, f"phase 15: --fixture {fx} exited {rc}, not 1: "
+              f"{err[-2000:]}")
+    by_kernel = {k: launches.get(k, 0) for k in build.LAUNCHES}
+    check(all(by_kernel[k] > 0 for k in MAIN_PATH),
+          f"phase 15: a fused entry launched no kernel of the path: "
+          f"{launches}")
+    say(f"  15 traced {entries} entries, {ops} ops taped, {colls} "
+        f"collectives logged, LIM001 held at {grid} grid points against "
+        f"the built libraries, LIM002 at {boundary} boundary points, "
+        f"linted {files} files, "
+        f"{len(unused)} allowlist entries unused on the card")
+    say("  15 launches " + json.dumps(by_kernel))
+    say(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return by_kernel
+
+
+def analysis_only(torch, build) -> int:
+    """``--analysis-only``: phases 1 and 15."""
+    smi = phase_environment(torch, build)
+    phase_analysis(build)
+    say(smi)
+    return 0
+
+
 def hubs_only(torch, api, build) -> int:
     """``--hubs-only``: phases 1 and 9, both hub graphs at 2^20."""
     smi = phase_environment(torch, build)
@@ -4489,6 +4590,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="only build the kernels and run phases 12a (the "
                          "placement) and 14 (no contract line)")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="only build the kernels and run phase 15 (no "
+                         "contract line)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -4528,6 +4632,8 @@ def main(argv=None) -> int:
         return lm_only(torch, build)
     if args.train_only:
         return train_only(torch, api, build)
+    if args.analysis_only:
+        return analysis_only(torch, build)
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     smi = phase_environment(torch, build)
@@ -4574,6 +4680,7 @@ def main(argv=None) -> int:
     by_path["train"] = phase_train(torch, build, smi, g_placed, plan,
                                    by_path["placement"])
     del g_placed, plan
+    by_path["analysis"] = phase_analysis(build)
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

@@ -130,6 +130,18 @@ def forget_world_group() -> None:
     _WORLD.clear()
 
 
+# the static verifier's collective log (``analysis/collectives_pass.py``)
+# while it tapes an entry: called as ``OBSERVER(kind, tensor, group, pe)``
+# before each collective below is issued, and None otherwise
+OBSERVER = None
+
+
+def _issue(kind: str, x: torch.Tensor, pe: PeGroup, group) -> None:
+    pe.collectives += 1
+    if OBSERVER is not None:
+        OBSERVER(kind, x, group, pe)
+
+
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """bool travels as uint8 (gloo has no bool reductions)."""
     return t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
@@ -137,7 +149,7 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 def _a2a(x: torch.Tensor, pe: PeGroup, group) -> torch.Tensor:
     out = torch.empty_like(x)
-    pe.collectives += 1
+    _issue("all_to_all", x, pe, group)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -178,7 +190,7 @@ def all_to_all(slab: torch.Tensor, pe: PeGroup,
 def _gather(x: torch.Tensor, pe: PeGroup, group, parts: int):
     out = torch.empty((parts * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    pe.collectives += 1
+    _issue("all_gather", x, pe, group)
     _ALL_GATHER(out, x, group=group)
     return out
 
@@ -206,7 +218,7 @@ def all_gather_1d(shard: torch.Tensor, pe: PeGroup,
 def _scatter(x: torch.Tensor, pe: PeGroup, group, parts: int):
     out = torch.empty((x.shape[0] // parts,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    pe.collectives += 1
+    _issue("reduce_scatter", x, pe, group)
     _REDUCE_SCATTER(out, x, op=dist.ReduceOp.SUM, group=group)
     return out
 
@@ -234,7 +246,7 @@ def psum(x: torch.Tensor, pe: PeGroup) -> torch.Tensor:
     ``x``, on every PE."""
     pe.check(x, "psum")
     out = x.clone()
-    pe.collectives += 1
+    _issue("psum", x, pe, pe.group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=pe.group)
     return out
 

@@ -198,6 +198,14 @@ def stream_of(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+def check_heavy(what: str, H: int, D: int, M: int) -> None:
+    """Raise unless H heavy rows of D slab lanes and M overflow lanes fit
+    the heavy tables' int32 slots (two a lane)."""
+    if not 2 * (H * D + M) < 2**31:
+        raise ValueError(f"{what}: {H} heavy rows of {H * D + M} lanes "
+                         "exceed the heavy tables' int32 slots")
+
+
 def check_index_range(what: str, t, hi: int) -> None:
     """Raise unless every entry of the integer tensor ``t`` lies in
     [0, hi). On the card this reads two numbers back, so it waits for

@@ -28,6 +28,14 @@ _SIG = {"bal_scores": [_build.P] * 8 + [_build.I] * 4 + [_build.U]
 __all__ = ["NEG_INF", "bal_scores", "greedy_pick"]
 
 
+def check_launch(R: int, D: int, K: int) -> None:
+    """Raise unless R rows of D lanes over K blocks fit the launch."""
+    if R == 0 or D == 0 or K == 0:
+        raise ValueError(f"bal_scores: empty operands (R={R}, D={D}, K={K})")
+    if R >= 2**31:
+        raise ValueError(f"bal_scores: {R} rows exceed the launch limit")
+
+
 def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
                n: int, salt: int, parent=None, overflow=None,
                dist: bool = False):
@@ -58,10 +66,7 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
         tables.append(("parent", parent))
     for name, t in tables:
         req(f"bal_scores {name}", t, torch.int32, (K,), dev)
-    if R == 0 or D == 0 or K == 0:
-        raise ValueError(f"bal_scores: empty operands (R={R}, D={D}, K={K})")
-    if R >= 2**31:
-        raise ValueError(f"bal_scores: {R} rows exceed the launch limit")
+    check_launch(R, D, K)
     H = 0
     if overflow is not None and overflow[0].shape[0]:
         H, M = overflow[0].shape[0], overflow[2].shape[0]
@@ -70,9 +75,7 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
             dev)
         req("bal_scores overflow idx", overflow[2], torch.int32, (M,), dev)
         req("bal_scores overflow w", overflow[3], torch.int32, (M,), dev)
-        if not 2 * (H * D + M) < 2**31:
-            raise ValueError(f"bal_scores: {H} heavy rows of {H * D + M} "
-                             "lanes exceed the heavy tables' int32 slots")
+        _build.check_heavy("bal_scores", H, D, M)
     lib = _build.load("bal_round", _SIG)
     rel = torch.empty(R, dtype=torch.float32, device=dev)
     tgt = torch.empty(R, dtype=torch.int32, device=dev)

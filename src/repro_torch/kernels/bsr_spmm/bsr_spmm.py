@@ -20,6 +20,16 @@ _SIG = {"bsr_spmm": [_build.P] * 3 + [_build.I] * 4 + [_build.P] * 2}
 MAX_BS = 128        # the kernel's Y tile holds 128 rows
 
 
+def check_launch(bs: int, block_rows: int) -> None:
+    """Raise unless the block size and the block rows fit the launch."""
+    if not 1 <= bs <= MAX_BS:
+        raise ValueError(f"bsr_spmm: block size {bs} outside [1, "
+                         f"{MAX_BS}]")
+    if block_rows >= 2**31:
+        raise ValueError(f"bsr_spmm: {block_rows} block rows exceed the "
+                         "launch limit")
+
+
 def bsr_spmm(col_flat, vals, x, *, block_rows: int, nnz_per_row: int):
     """col_flat: (block_rows * nnz_per_row,) int32 column-block ids
     (padded entries point at block 0 with all-zero vals). vals: same
@@ -45,12 +55,7 @@ def bsr_spmm(col_flat, vals, x, *, block_rows: int, nnz_per_row: int):
     _build.require("bsr_spmm col_flat", col_flat, torch.int32, (nb,), dev)
     _build.require("bsr_spmm vals", vals, torch.float32, (nb, bs, bs), dev)
     _build.require("bsr_spmm x", x, torch.float32, (cb * bs, f), dev)
-    if not 1 <= bs <= MAX_BS:
-        raise ValueError(f"bsr_spmm: block size {bs} outside [1, "
-                         f"{MAX_BS}]")
-    if block_rows >= 2**31:
-        raise ValueError(f"bsr_spmm: {block_rows} block rows exceed the "
-                         "launch limit")
+    check_launch(bs, block_rows)
     _build.check_index_range("bsr_spmm col_flat", col_flat, cb)
     y = torch.empty(block_rows * bs, f, dtype=torch.float32, device=dev)
     if y.numel() == 0:

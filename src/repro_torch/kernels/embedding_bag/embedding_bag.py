@@ -17,6 +17,13 @@ from .ref import embedding_bag_ref
 _SIG = {"embedding_bag": [_build.P] * 2 + [_build.I] * 4 + [_build.P] * 2}
 
 
+def check_launch(B: int, D: int, V: int) -> None:
+    """Raise unless B bags of width D from V rows fit the launch."""
+    if B >= 2**31 or D >= 2**31 or V >= 2**31:
+        raise ValueError(f"embedding_bag: {B} bags of width {D} from {V} "
+                         "rows exceed the launch limits")
+
+
 def embedding_bag_1row(idx, table):
     """idx (B, BAG) int32, table (V, D) f32 -> (B, D) f32 sum-pooled;
     repeated indices are summed, not deduped. An index outside [0, V)
@@ -41,9 +48,7 @@ def _gather(idx, table):
         raise ValueError(f"embedding_bag: unsupported device {dev}")
     _build.require("embedding_bag idx", idx, torch.int32, (B, BAG), dev)
     _build.require("embedding_bag table", table, torch.float32, (V, D), dev)
-    if B >= 2**31 or D >= 2**31 or V >= 2**31:
-        raise ValueError(f"embedding_bag: {B} bags of width {D} from {V} "
-                         "rows exceed the launch limits")
+    check_launch(B, D, V)
     out = torch.empty(B, D, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

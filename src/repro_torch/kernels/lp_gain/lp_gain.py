@@ -15,6 +15,14 @@ from .ref import lp_gain_ell_ref
 _SIG = {"lp_gain_ell": [_build.P] * 6 + [_build.I] * 2 + [_build.P] * 4}
 
 
+def check_launch(N: int, D: int) -> None:
+    """Raise unless N rows of D lanes fit the launch."""
+    if D < 1:
+        raise ValueError("lp_gain_ell: rows have no lanes")
+    if N >= 2**31:
+        raise ValueError(f"lp_gain_ell: {N} rows exceed the launch limit")
+
+
 def lp_gain_ell(lab, w, tgt_w, own_lab, vw, budget, *, row_tile: int = 256):
     """``(best, target, own_conn)``, each (N, 1) f32 / int32 / f32; the
     contract of ``ref.lp_gain_ell_ref``. ``row_tile`` must divide N, as
@@ -34,10 +42,7 @@ def lp_gain_ell(lab, w, tgt_w, own_lab, vw, budget, *, row_tile: int = 256):
     _build.require("lp_gain_ell own_lab", own_lab, torch.int32, (N, 1), dev)
     _build.require("lp_gain_ell vw", vw, torch.float32, (N, 1), dev)
     _build.require("lp_gain_ell budget", budget, torch.float32, (1, 1), dev)
-    if D < 1:
-        raise ValueError("lp_gain_ell: rows have no lanes")
-    if N >= 2**31:
-        raise ValueError(f"lp_gain_ell: {N} rows exceed the launch limit")
+    check_launch(N, D)
     best = torch.empty(N, 1, dtype=torch.float32, device=dev)
     target = torch.empty(N, 1, dtype=torch.int32, device=dev)
     own_conn = torch.empty(N, 1, dtype=torch.float32, device=dev)

@@ -44,6 +44,15 @@ def _scratch_bytes(S: int, R: int, num_labels: int, H: int = 0,
     return n.value
 
 
+def check_launch(R: int, D: int, num_labels: int) -> None:
+    """Raise unless a solo call of R rows of D lanes over ``num_labels``
+    labels fits the launch: int32 row ids and labels."""
+    if not (0 < R < 2**31 and 0 < D < 2**31 and 0 < num_labels < 2**31):
+        raise ValueError(f"lp_move_chunk: R={R}, D={D}, num_labels="
+                         f"{num_labels} outside the launch limits [1, 2^31)"
+                         " (int32 row ids and labels)")
+
+
 def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
                   num_labels: int, nbud=None, overflow=None):
     """``(moved, tgt)`` (R,) int32 for one ELL chunk; the contract of
@@ -64,10 +73,7 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
         _build.require(f"lp_move_chunk {name}", t, torch.int32, (R, D), dev)
     for name, t in (("own", own), ("vw", vw)):
         _build.require(f"lp_move_chunk {name}", t, torch.int32, (R,), dev)
-    if not (0 < R < 2**31 and 0 < D < 2**31 and 0 < num_labels < 2**31):
-        raise ValueError(f"lp_move_chunk: R={R}, D={D}, num_labels="
-                         f"{num_labels} outside the launch limits [1, 2^31)"
-                         " (int32 row ids and labels)")
+    check_launch(R, D, int(num_labels))
     H, M, hv = 0, 0, (None,) * 6
     if overflow is not None and overflow[0].shape[0]:
         want = 5 if nbud is None else 6     # + the budgets
@@ -86,9 +92,7 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
                 continue
             _build.require(f"lp_move_chunk overflow {name}", t, torch.int32,
                            (M,), dev)
-        if not 2 * (H * D + M) < 2**31:
-            raise ValueError(f"lp_move_chunk: {H} heavy rows of {H * D + M}"
-                             " lanes exceed the heavy tables' int32 slots")
+        _build.check_heavy("lp_move_chunk", H, D, M)
     lib = _build.load("lp_move", _SIG)
     moved, tgt = torch.empty((2, R), dtype=torch.int32, device=dev)
     # the kernel's scratch, one allocation apart from the outputs so that

@@ -19,14 +19,20 @@ def _id_range(csrc: np.ndarray, cdst: np.ndarray):
             max(int(csrc.max()), int(cdst.max())))
 
 
-def _fits(n: int, max_id: int, w: np.ndarray) -> bool:
-    return (max_id < I32_MAX and n <= MAX_RECORDS
-            and int(np.abs(w).astype(np.int64).sum()) < 2**31)
+def _weight_total(w: np.ndarray) -> int:
+    return int(np.abs(w).astype(np.int64).sum())
+
+
+def _fits(n: int, max_id: int, w_total: int) -> bool:
+    """The fused dedup's fit predicate, on shapes alone: n records with
+    ids up to ``max_id`` and absolute weight total ``w_total``."""
+    return max_id < I32_MAX and n <= MAX_RECORDS and w_total < 2**31
 
 
 def dedup_fits(csrc: np.ndarray, cdst: np.ndarray, w: np.ndarray) -> bool:
     """int32-exactness + launch-fit guard for the fused dedup path."""
-    return csrc.size > 0 and _fits(csrc.size, _id_range(csrc, cdst)[1], w)
+    return csrc.size > 0 and _fits(csrc.size, _id_range(csrc, cdst)[1],
+                                   _weight_total(w))
 
 
 def dedup_arcs_fused(csrc: np.ndarray, cdst: np.ndarray, w: np.ndarray,
@@ -41,11 +47,11 @@ def dedup_arcs_fused(csrc: np.ndarray, cdst: np.ndarray, w: np.ndarray,
         return (csrc.astype(np.int64), cdst.astype(np.int64),
                 w.astype(np.int64))
     lo, hi = _id_range(csrc, cdst)
-    if not _fits(csrc.size, hi, w):
+    total = _weight_total(w)
+    if not _fits(csrc.size, hi, total):
         raise ValueError(
             f"dedup_arcs_fused: {csrc.size} records with ids up to {hi} "
-            "and total weight "
-            f"{int(np.abs(w).astype(np.int64).sum())} exceed the seg_merge "
+            f"and total weight {total} exceed the seg_merge "
             "kernel's int32 envelope; use kernel='composed'")
     s_src, s_dst, tot, first = seg_merge(
         *(torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)

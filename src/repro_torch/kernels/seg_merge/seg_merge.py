@@ -34,6 +34,13 @@ def _scratch_bytes(L: int) -> int:
     return n.value
 
 
+def check_launch(L: int) -> None:
+    """Raise unless L records fit the launch (int32 offsets)."""
+    if L > MAX_RECORDS:
+        raise ValueError(f"seg_merge: {L} records exceed the launch limit "
+                         f"{MAX_RECORDS} (int32 offsets)")
+
+
 def seg_merge(src, dst, w, max_id=None):
     """Sort + merge (L,) int32 records. Returns ``(s_src, s_dst, tot,
     first)``: sorted keys, per-record run totals, int32 run-start flags.
@@ -50,9 +57,7 @@ def seg_merge(src, dst, w, max_id=None):
     (L,) = src.shape
     for name, t in (("src", src), ("dst", dst), ("w", w)):
         _build.require(f"seg_merge {name}", t, torch.int32, (L,), src.device)
-    if L > MAX_RECORDS:
-        raise ValueError(f"seg_merge: {L} records exceed the launch limit "
-                         f"{MAX_RECORDS} (int32 offsets)")
+    check_launch(L)
     bits = key_bits(max_id)
     out = torch.empty((4, L), dtype=torch.int32, device=src.device)
     if L == 0:

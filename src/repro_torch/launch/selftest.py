@@ -42,10 +42,12 @@ subprocesses: a front door plus two worker processes serve
 bit-identically to solo runs, a SIGKILLed worker's admitted requests
 fail over to the survivor, and a SIGTERM drain finishes in-flight work
 and answers queued tickets with structured errors — nothing hangs).
-``--test`` takes several names. ``analysis`` (the static verifier) is
-not ported: it exits 2. Prints one JSON line per test; exit code 0 iff
-all pass. Runs on the card unless ``--device cpu``; without enough cards
-it exits 2.
+``--test`` takes several names. ``analysis`` (*not* part of ``all``)
+runs the verifier, ``python -m repro_torch.analysis`` with this run's
+``--devices`` and ``--device``, in fresh processes: it must pass on the
+repo as committed and fail on each seeded-violation fixture. Prints one
+JSON line per test; exit code 0 iff all pass. Runs on the card unless
+``--device cpu``; without enough cards it exits 2.
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def _every_rank(pe, obj):
     """Each rank's ``obj``, in rank order, on every rank."""
     import torch.distributed as dist
     every = [None] * pe.P
-    dist.all_gather_object(every, obj)
+    dist.all_gather_object(every, obj, group=pe.group)
     return every
 
 
@@ -315,10 +317,6 @@ def main(argv=None) -> int:
                          "the cards, one a rank; 'cpu': gloo ranks)")
     args = ap.parse_args(argv)
     tests = set(args.test)
-    if "analysis" in tests:
-        print("selftest: the static verifier (analysis/) is not ported to "
-              "repro_torch yet (ROADMAP queue 1, item 3)", file=sys.stderr)
-        return 2
 
     from repro_torch.api.runtime import MeshFailure, PeMesh, mesh_devices
     from repro_torch.kernels.dispatch import resolve_device
@@ -643,6 +641,9 @@ def _checks(args, P, dev, want, report, mesh_of):
     if want("fabric"):
         _fabric_checks(args, dev, cfg, report)
 
+    if want("analysis"):
+        _analysis_checks(args, dev, report)
+
 
 def _serve_checks(args, P, dev, cfg, report):
     import time
@@ -758,6 +759,36 @@ def _batch_checks(args, dev, cfg, report):
            all(np.array_equal(o.assignment, s.assignment) and o.cut == s.cut
                for o, s in zip(out, solo)),
            cuts=[o.cut for o in out])
+
+
+def _analysis_checks(args, dev, report):
+    # not part of "all": each direction runs the verifier in a fresh
+    # process (its dist entries on a mesh of their own). It must pass on
+    # the repo as committed AND fail on every seeded-violation fixture —
+    # both directions, or the gate is vacuous
+    import subprocess
+
+    import repro_torch
+    from repro_torch.analysis.__main__ import FIXTURES
+
+    src_dir = os.path.dirname(os.path.dirname(repro_torch.__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src_dir + os.pathsep + env.get("PYTHONPATH", "")
+    base = ["--devices", str(args.devices)] + (
+        ["--device", "cpu"] if dev.type == "cpu" else [])
+
+    def run_analysis(*extra):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", *base, *extra],
+            capture_output=True, text=True, env=env)
+
+    proc = run_analysis()
+    report("analysis.repo_clean", proc.returncode == 0,
+           tail=proc.stdout.strip().splitlines()[-1:])
+    for fx in FIXTURES:
+        proc = run_analysis("--fixture", fx)
+        report(f"analysis.fixture_{fx}_fires", proc.returncode == 1,
+               tail=proc.stdout.strip().splitlines()[-1:])
 
 
 def _fabric_checks(args, dev, cfg, report):

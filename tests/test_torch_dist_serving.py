@@ -166,7 +166,7 @@ def test_selftest_refuses_analysis_and_cards_it_does_not_have():
     out = _cli("repro_torch.launch.selftest", "--devices", "2", "--test",
                "analysis")
     assert out.returncode == 2 and out.stdout == ""
-    assert "ROADMAP queue 1, item 3" in out.stderr
+    assert "--device cpu" in out.stderr
     out = _cli("repro_torch.launch.selftest", "--devices", "2", "--test",
                "smoke")
     assert out.returncode == 2 and out.stdout == ""
