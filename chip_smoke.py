@@ -282,6 +282,28 @@ exits non-zero if any one fails:
      the verifier's processes, which start at 0) and the phase's
      seconds. ``--analysis-only`` runs phases 1 and 15 (no contract
      line).
+ 16. the split layouts (``dist/sharding.py``: DTensor over a
+     ``DeviceMesh``; ``launch/{mesh,steps,dryrun}.py``): (a) ``python -m
+     repro_torch.launch.dryrun`` on fake CUDA tensors over a fake group:
+     one cell a step kind at the full CONFIG and depth on the (32, 8)
+     mesh (gemma-2b train_4k; qwen2-7b prefill_32k, decode_32k,
+     long_500k; arctic-480b decode_32k; gat-cora ogb_products; schnet
+     molecule; dlrm-rm2 train_batch, serve_p99, retrieval_cand),
+     qwen2-7b decode_32k on (2, 32, 8) and dlrm-rm2 serve_p99 on the
+     card mesh, six processes at once: each cell's bytes a card against
+     the card's memory, flops, collectives and seconds; (b) on a
+     one-rank NCCL group and ``make_card_mesh()``: every SMOKE config's
+     built steps (float32; train, prefill and decode, serve) on DTensors
+     against the plain port's steps from the same state (losses 1e-5
+     relative, logits and caches 2e-4 and moments twice the gradient
+     share of their largest |value|, parameters 2 lr: Adam's first step
+     is lr x sign(g)), and dlrm-rm2 serve_p99 at its full CONFIG for
+     real: its arguments' storages hold the dry-run's
+     ``argument_size_bytes`` exactly (the allocator's growth printed
+     beside), its peak beside the dry-run's prediction; (c) no
+     partitioner kernel launches (the counts, zeroed just before, are
+     printed).
+     ``--dryrun-only`` runs phases 1 and 16 (no contract line).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4496,6 +4518,315 @@ def phase_analysis(build) -> dict:
     return by_kernel
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the split layouts (DTensor over a DeviceMesh) and the dry-run
+# ---------------------------------------------------------------------------
+
+# 16a: at least one cell a step kind, on the fake (32, 8) mesh, full
+# CONFIGs and depth; one LM cell also on (2, 32, 8); dlrm-rm2/serve_p99
+# also on the card mesh, whose argument bytes 16b holds to the real ones
+DRYRUN_CELLS = ("gemma-2b/train_4k", "qwen2-7b/prefill_32k",
+                "qwen2-7b/decode_32k", "qwen2-7b/long_500k",
+                "arctic-480b/decode_32k", "gat-cora/ogb_products",
+                "schnet/molecule", "dlrm-rm2/train_batch",
+                "dlrm-rm2/serve_p99", "dlrm-rm2/retrieval_cand")
+DRYRUN_MULTI_POD = ("qwen2-7b/decode_32k",)
+DRYRUN_JOBS = 6
+# 16b: small shapes of every step kind for the SMOKE configs
+SPLIT_SHAPES = {
+    "train": {"seq_len": 16, "global_batch": 4},
+    "prefill": {"seq_len": 16, "global_batch": 4},
+    "decode": {"seq_len": 32, "global_batch": 4},
+    "gnn_full": {"n_nodes": 60, "n_edges": 200, "n_pad": 64, "e_pad": 256},
+    "recsys_train": {"batch": 8},
+    "recsys_serve": {"batch": 8},
+}
+SPLIT_KINDS = {"lm": ("train", "prefill", "decode"), "gnn": ("gnn_full",),
+               "recsys": ("recsys_train", "recsys_serve")}
+
+
+def dryrun_cells(torch, cells, mesh, out, jobs):
+    """``python -m repro_torch.launch.dryrun`` on ``cells`` (fake CUDA
+    tensors, a fake group of the mesh's size), its processes started at
+    once. Returns the process."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+           mesh, "--jobs", str(jobs), "--out", str(out)]
+    for c in cells:
+        cmd += ["--cell", c]
+    return subprocess.Popen(cmd, cwd=ROOT, env=dict(
+        os.environ, PYTHONPATH=str(SRC)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def say_dryrun(r, card):
+    """One dry-run cell's line: per-card bytes against the card's memory,
+    flops, collectives and seconds."""
+    m = r["memory_analysis"]
+    flops = r["cost_analysis"]["flops"]
+    ratio = flops * r["n_devices"] / max(r["model_flops"], 1)
+    coll = ", ".join(f"{k} {v['count']}x {v['bytes'] / 1e9:.3f} GB"
+                     for k, v in sorted(r["collectives"].items()))
+    say(f"  16a {r['arch']}/{r['shape']} on {tuple(r['mesh'])}: args "
+        f"{m['argument_size_bytes'] / 1e9:.3f} GB + temp "
+        f"{m['temp_size_bytes'] / 1e9:.3f} GB = "
+        f"{100 * r['device_memory_bytes'] / card:.1f}% of the card "
+        f"(fits {r['fits']}); {flops:.4g} flops a card (x{r['n_devices']} "
+        f"/ model_flops = {ratio:.2f}); collectives: {coll or 'none'}; build "
+        f"{r['build_s']} s, run {r['run_s']} s")
+
+
+def split_args(torch, b, kind, cfg, p, params, dev, seed):
+    """Real arguments of a built step on ``dev``: ``params``, a fresh
+    optimizer state for a train step, and numpy draws for the rest."""
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+
+    rng = np.random.default_rng(seed)
+
+    def t(a, like):
+        return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=dev)
+
+    def draw(name, like):
+        shape = tuple(like.shape)
+        if name == "tokens":
+            return t(rng.integers(0, cfg.vocab, shape), like)
+        if name == "cache_len":
+            return t(rng.integers(0, p["seq_len"] // 2, shape), like)
+        if name in ("k", "v"):
+            return torch.zeros(shape, dtype=like.dtype, device=dev)
+        if name in ("senders", "receivers"):
+            a = rng.integers(0, p["n_nodes"], shape)
+            a[p["n_edges"]:] = p["n_pad"] - 1
+            return t(a, like)
+        if name == "node_mask":
+            return t(np.arange(shape[0]) < p["n_nodes"], like)
+        if name in ("trip_kj", "trip_ji"):
+            return t(rng.integers(0, p["e_pad"] + 1, shape), like)
+        if name == "species":
+            return t(rng.integers(0, 10, shape), like)
+        if name == "graph_id":
+            return torch.zeros(shape, dtype=like.dtype, device=dev)
+        if name == "sparse":
+            return t(rng.integers(0, cfg.vocab_per_table, shape), like)
+        if name == "labels" and hasattr(cfg, "n_classes"):   # GAT
+            return t(rng.integers(0, cfg.n_classes, shape), like)
+        if name == "labels" and hasattr(cfg, "n_dense"):     # DLRM clicks
+            return t(rng.integers(0, 2, shape), like)
+        return t(rng.standard_normal(shape), like)
+
+    def tree(fake, name=""):
+        if isinstance(fake, dict):
+            return {k: tree(v, k) for k, v in fake.items()}
+        return draw(name, fake)
+    if kind in ("train", "gnn_full", "recsys_train"):
+        opt_init = make_optimizer(OptConfig(name=b.opt_name, lr=1e-3))[0]
+        state = {"params": params, "opt": opt_init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev),
+                 "nan_skips": torch.zeros((), dtype=torch.int32,
+                                          device=dev)}
+        return (state, tree(b.args[1]))
+    names = {"prefill": ("tokens",), "recsys_serve": ("batch",),
+             "decode": ("cache", "tokens", "cache_len")}[kind]
+    return (params,) + tuple(tree(a, n) for a, n in zip(b.args[1:], names))
+
+
+def split_steps_on_card(torch, mesh, dev):
+    """16b: every SMOKE config's built steps (float32 compute) on the card
+    mesh's DTensors against the plain port's steps on plain tensors, from
+    the same state."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import carry, configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.common import distribute, init_params
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    def flat(out):
+        return {"/".join(k): (v.full_tensor() if isinstance(v, DTensor)
+                              else v).detach().float().cpu()
+                for k, v in leaves_with_paths(out)}
+    worst, n = 0.0, 0
+    for arch in TRAIN_SMOKE_ARCHS:
+        entry = configs.get(arch)
+        cfg = entry.smoke_config
+        if entry.kind == "lm":
+            cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        for kind in SPLIT_KINDS[entry.kind]:
+            p = SPLIT_SHAPES[kind]
+            e = dataclasses.replace(entry, config=cfg,
+                                    shapes=(ShapeSpec(kind, kind, p),))
+            split = build_step(e, kind, mesh)
+            plain = build_step(e, kind, MeshShape(("data", "model"), (1, 1)))
+            mcfg = cfg
+            if arch == "gat-cora":
+                mcfg = dataclasses.replace(cfg, d_in=16)
+            specs = carry._model_module(arch).build_specs(mcfg)
+            params = init_params(specs, torch.Generator().manual_seed(
+                DATA_SEED), device=dev)
+            args = split_args(torch, plain, kind, cfg, p, params, dev,
+                              DATA_SEED)
+            want = flat(plain.fn(*tree_map(torch.clone, args)))
+            got = flat(split.fn(*distribute(tree_map(torch.clone, args),
+                                            split.in_shardings, mesh)))
+            what = f"16b {arch}/{kind}"
+            check(set(got) == set(want), f"{what}: outputs {sorted(got)}")
+            share = TRAIN_LM_SHARE if entry.kind == "lm" else TRAIN_MODEL_TOL
+            for k, w in want.items():
+                scale = max(float(w.abs().max()), 1.0) if w.numel() else 1.0
+                err = float((got[k] - w).abs().max()) if w.numel() else 0.0
+                part = k.split("/")[1:2]   # ["opt"]: an optimizer leaf
+                lim = (1e-5 if k.endswith("loss") else 2 * share
+                       if part == ["opt"] else 2e-4) * scale
+                if k.startswith("0/params/"):
+                    lim = 2 * 1e-3 + 1e-6 * scale
+                worst = max(worst, err / lim)
+                check(err <= lim, f"{what} {k}: {err} beyond {lim}")
+            n += 1
+    say(f"  16b {n} built SMOKE steps on the card mesh's DTensors equal "
+        f"the plain port's (float32; largest error {worst:.3f} of its "
+        f"allowance)")
+
+
+def serve_p99_for_real(torch, mesh, dev, predicted):
+    """16b: dlrm-rm2/serve_p99 at its full CONFIG (6.66 GB of tables) on
+    the card mesh: its arguments allocate what the dry-run's
+    ``argument_size_bytes`` says; its peak beside the prediction."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.common import distribute, init_params
+    from repro_torch.models import dlrm as DL
+
+    entry = configs.get("dlrm-rm2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = build_step(entry, "serve_p99", mesh)
+    before = torch.cuda.memory_allocated(dev)
+    params = init_params(DL.build_specs(entry.config),
+                         torch.Generator(device=dev).manual_seed(DATA_SEED),
+                         device=dev)
+    args = distribute(split_args(torch, b, "recsys_serve", entry.config,
+                                 {}, params, dev, DATA_SEED),
+                      b.in_shardings, mesh)
+    del params
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    storages = {}
+    for leaf in flat_tensors(args):
+        st = leaf.to_local().untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    real = sum(storages.values())
+    rounded = sum(-(-n // 512) * 512 for n in storages.values())
+    check(real == predicted["memory_analysis"]["argument_size_bytes"],
+          f"16b serve_p99: the arguments hold {real} bytes, the dry-run "
+          f"says {predicted['memory_analysis']['argument_size_bytes']}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = b.fn(*args)
+    out = out.full_tensor() if hasattr(out, "full_tensor") else out
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    check(tuple(out.shape) == (512,) and bool(torch.isfinite(out).all())
+          and bool(((out > 0) & (out < 1)).all()),
+          f"16b serve_p99: scores {tuple(out.shape)} not finite in (0, 1)")
+    say(f"  16b dlrm-rm2/serve_p99 at full CONFIG on the card mesh: the "
+        f"arguments hold {real} bytes, the dry-run's argument_size_bytes "
+        f"exactly (the allocator's count grew by {held} bytes, "
+        f"{held - rounded} beyond their 512-byte blocks); peak "
+        f"{peak / 1e9:.3f} GB against the dry-run's "
+        f"{predicted['device_memory_bytes'] / 1e9:.3f} GB (arguments + "
+        f"temporaries)")
+    del args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flat_tensors(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in flat_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in flat_tensors(v)]
+    return [tree]
+
+
+def phase_dryrun(torch, build, smi) -> dict:
+    """Phase 16: the split layouts. Returns this phase's kernel launches
+    (all 0: no model step launches a partitioner kernel)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_card_mesh
+
+    t_phase = time.perf_counter()
+    say(f"== phase 16: the split layouts and the dry-run ({smi})")
+    build.reset_launches()
+    card = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d)
+        procs = [dryrun_cells(torch, DRYRUN_CELLS, "pod", out / "pod",
+                              DRYRUN_JOBS),
+                 dryrun_cells(torch, DRYRUN_MULTI_POD, "multi-pod",
+                              out / "multi", 1),
+                 dryrun_cells(torch, ("dlrm-rm2/serve_p99",), "card",
+                              out / "card", 1)]
+        logs = [proc.communicate(timeout=900)[0] for proc in procs]
+        for proc, log in zip(procs, logs):
+            check(proc.returncode == 0, f"phase 16a: the dry-run exited "
+                  f"{proc.returncode}:\n{log[-4000:]}")
+        results = {}
+        for sub in ("pod", "multi", "card"):
+            for f in sorted((out / sub).glob("*.json")):
+                r = json.loads(f.read_text())
+                results[(sub, f"{r['arch']}/{r['shape']}")] = r
+    want = [("pod", c) for c in DRYRUN_CELLS] + \
+        [("multi", c) for c in DRYRUN_MULTI_POD] + \
+        [("card", "dlrm-rm2/serve_p99")]
+    check(sorted(results) == sorted(want),
+          f"phase 16a: cells {sorted(results)}")
+    for key in want:
+        r = results[key]
+        check(r["cost_analysis"]["flops"] > 0
+              and r["memory_analysis"]["argument_size_bytes"] > 0,
+              f"phase 16a: {key} counted nothing")
+        say_dryrun(r, card)
+    say(f"  16a {len(want)} cells in {time.perf_counter() - t_phase:.1f} s "
+        f"({DRYRUN_JOBS} processes at once)")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_card_mesh()
+        split_steps_on_card(torch, mesh, dev)
+        serve_p99_for_real(torch, mesh, dev,
+                           results[("card", "dlrm-rm2/serve_p99")])
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    say("  16 launches " + json.dumps(launches))
+    check(not any(launches.values()),
+          f"phase 16: a model step launched a partitioner kernel: "
+          f"{launches}")
+    say(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_only(torch, build) -> int:
+    """``--dryrun-only``: phases 1 and 16."""
+    smi = phase_environment(torch, build)
+    phase_dryrun(torch, build, smi)
+    say(smi)
+    return 0
+
+
 def analysis_only(torch, build) -> int:
     """``--analysis-only``: phases 1 and 15."""
     smi = phase_environment(torch, build)
@@ -4593,6 +4924,9 @@ def main(argv=None) -> int:
     ap.add_argument("--analysis-only", action="store_true",
                     help="only build the kernels and run phase 15 (no "
                          "contract line)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="only build the kernels and run phase 16 (no "
+                         "contract line)")
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -4634,6 +4968,8 @@ def main(argv=None) -> int:
         return train_only(torch, api, build)
     if args.analysis_only:
         return analysis_only(torch, build)
+    if args.dryrun_only:
+        return dryrun_only(torch, build)
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     smi = phase_environment(torch, build)
@@ -4681,6 +5017,7 @@ def main(argv=None) -> int:
                                    by_path["placement"])
     del g_placed, plan
     by_path["analysis"] = phase_analysis(build)
+    by_path["dryrun"] = phase_dryrun(torch, build, smi)
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

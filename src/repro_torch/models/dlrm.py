@@ -20,9 +20,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..dist.sharding import NULL_CTX, ShardCtx
-from .common import ParamSpec
+from ..dist.sharding import NULL_CTX, ShardCtx, contiguous_stride, \
+    local_param, rowwise, shard_offset, to_placements
+from .common import ParamSpec, has_values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +72,11 @@ def build_specs(cfg: DLRMConfig) -> Dict[str, Any]:
 
 def _rows(vocab: int, idx):
     """``idx`` as row numbers of a table of ``vocab`` rows, negative
-    ones counted from the end; raises if any lies outside [-V, V)."""
+    ones counted from the end; raises if any lies outside [-V, V) (fake
+    indices, which have no values, are not checked)."""
     idx = idx.long()
+    if not has_values(idx):
+        return torch.where(idx < 0, idx + vocab, idx)
     lo, hi = (int(v) for v in torch.aminmax(idx)) if idx.numel() else (0, 0)
     if lo < -vocab or hi >= vocab:
         raise ValueError(
@@ -95,15 +100,71 @@ def embedding_bag(table, idx, weights=None, mode: str = "sum"):
 def table_bags(tables, sparse, dtype):
     """All tables' bags at once: tables (T, V, D), sparse (B, T, bag)
     -> (B, T, D), table t's bag summed from table t's rows."""
+    if isinstance(tables, DTensor):
+        return _table_bags_split(tables, sparse, dtype)
     n_tab, vocab = tables.shape[0], tables.shape[1]
     rows = _rows(vocab, sparse)                                  # (B, T, bag)
     tab = torch.arange(n_tab, device=rows.device)[None, :, None]
     return tables[tab, rows].to(dtype).sum(dim=2)
 
 
+def _table_bags_split(tables: DTensor, sparse, dtype) -> DTensor:
+    """``table_bags`` of DTensor tables, without gathering them: each rank
+    sums the rows its own shard holds (its tables, its vocab rows) for
+    its own batch rows, and the vocab shards' partial bags add up."""
+    mesh, nd = tables.device_mesh, tables.device_mesh.ndim
+    T, V, D = tables.shape
+    tp = tables.placements
+    vocab = [m for m, p in enumerate(tp) if p.is_shard(1)]
+    tabs = [m for m, p in enumerate(tp) if p.is_shard(0)]
+    sp = sparse.placements if isinstance(sparse, DTensor) else \
+        (Replicate(),) * nd
+    rows = tuple(Shard(1) if m in tabs else Replicate() if m in vocab
+                 else Shard(0) if p.is_shard(0) else Replicate()
+                 for m, p in enumerate(sp))
+    lay = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate()
+                for p in tp)
+    batch = [m for m, p in enumerate(rows) if p.is_shard(0)]
+    idx = _rows(V, to_placements(sparse, mesh, rows).to_local())
+    local = local_param(tables, mesh, lay, batch)
+    idx = idx - shard_offset(to_placements(tables, mesh, lay), 1)
+    inside = (idx >= 0) & (idx < local.shape[1])
+    tab = torch.arange(local.shape[0], device=idx.device)[None, :, None]
+    got = local[tab, torch.clamp(idx, 0, local.shape[1] - 1)].to(dtype)
+    got = torch.where(inside[..., None], got,
+                      torch.zeros((), dtype=dtype, device=got.device))
+    shape = (sparse.shape[0], T, D)
+    return DTensor.from_local(got.sum(dim=2), mesh, tuple(
+        Partial() if m in vocab else rows[m] for m in range(nd)),
+        run_check=False, shape=shape, stride=contiguous_stride(shape))
+
+
+def _interact(feats):
+    """(B, F, D) features -> (B, F (F - 1) / 2): their pairwise dot
+    products above the diagonal."""
+    inter = torch.einsum("bnd,bmd->bnm", feats, feats)      # (B, F, F)
+    iu, ju = torch.triu_indices(feats.shape[1], feats.shape[1], 1,
+                                device=feats.device)
+    return inter[:, iu, ju]
+
+
+def _features_whole(x):
+    """A DTensor's feature (last) dim gathered on every rank, its other
+    splits kept: each layer's input whole, its output split as its
+    weight's ``mlp`` columns are (a layer's product then needs no
+    partial sum)."""
+    if not isinstance(x, DTensor):
+        return x
+    last = x.dim() - 1
+    return to_placements(x, x.device_mesh, tuple(
+        Replicate() if p.is_partial() or p.is_shard(last) else p
+        for p in x.placements))
+
+
 def _mlp(params, prefix, n, x, final_act=None):
     for i in range(n):
-        x = x @ params[f"{prefix}_w{i}"] + params[f"{prefix}_b{i}"]
+        x = _features_whole(x) @ params[f"{prefix}_w{i}"] + \
+            params[f"{prefix}_b{i}"]
         if i < n - 1:
             x = F.relu(x)
         elif final_act is not None:
@@ -123,10 +184,8 @@ def forward(params, batch, cfg: DLRMConfig, ctx: ShardCtx = NULL_CTX):
     emb = ctx.constrain(emb, "batch", None, None)
 
     feats = torch.cat([bot[:, None, :], emb], dim=1)        # (B, 27, D)
-    inter = torch.einsum("bnd,bmd->bnm", feats, feats)      # (B, 27, 27)
-    iu, ju = torch.triu_indices(feats.shape[1], feats.shape[1], 1,
-                                device=feats.device)
-    flat = inter[:, iu, ju]                                 # (B, 351)
+    flat = rowwise(_interact, feats) if isinstance(feats, DTensor) \
+        else _interact(feats)                               # (B, 351)
     top_in = torch.cat([flat, bot], dim=-1)
     logits = _mlp(params, "top", len(cfg.top_mlp), top_in)  # (B, 1)
     return logits[:, 0]

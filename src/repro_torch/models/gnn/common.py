@@ -7,6 +7,12 @@ On a card both are atomics, whose float sums come out in no fixed order:
 a forward there agrees with the CPU's within a tolerance, not bit for
 bit. Padded edges use ``n_node - 1`` (the sentinel slot) as sender and
 receiver, so gathers stay in bounds and scatters land in a junk slot.
+
+On DTensors (the split layouts) ``scatter_sum`` adds each rank's own
+rows into a whole local output, which is a partial sum over the mesh
+dims the rows are split on (the next constraint reduces it, as GSPMD's
+scatter does); ``segment_max``, whose ``scatter_reduce_`` has no
+DTensor rule, replicates its operands and takes the max on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +22,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from ...dist.sharding import contiguous_stride, to_placements
 
 from ...graphs.format import Graph
 from ...kernels.dispatch import resolve_device
@@ -69,11 +78,29 @@ def scatter_sum(values, index, num_segments: int):
     """``jax.ops.segment_sum``: rows of ``values`` summed by ``index``;
     an index outside [0, num_segments) is dropped (it lands in a junk
     slot past the end, with no host sync)."""
+    if isinstance(values, DTensor) or isinstance(index, DTensor):
+        return _split_scatter_sum(values, index, num_segments)
     index = index.long()
     keep = (index >= 0) & (index < num_segments)
     index = torch.where(keep, index, num_segments)
     out = values.new_zeros((num_segments + 1,) + tuple(values.shape[1:]))
     return out.index_add_(0, index, values)[:num_segments]
+
+
+def _split_scatter_sum(values, index, num_segments: int):
+    mesh = (values if isinstance(values, DTensor) else index).device_mesh
+    values = to_placements(values, mesh, values.placements
+                           if isinstance(values, DTensor)
+                           else (Replicate(),) * mesh.ndim)
+    rows = tuple(p if p.is_shard(0) else Replicate()
+                 for p in values.placements)
+    idx = to_placements(index, mesh, rows).to_local()
+    out = scatter_sum(values.to_local(), idx, num_segments)
+    placed = tuple(Partial() if p.is_shard(0) else p
+                   for p in values.placements)
+    shape = (num_segments,) + tuple(values.shape[1:])
+    return DTensor.from_local(out, mesh, placed, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def _expand_index(index, like):
@@ -84,6 +111,13 @@ def _expand_index(index, like):
 def segment_max(values, index, num_segments: int):
     """``jax.ops.segment_max`` over in-range indices: an empty segment
     is -inf, as the reference's identity."""
+    if isinstance(values, DTensor) or isinstance(index, DTensor):
+        mesh = (values if isinstance(values, DTensor) else index).device_mesh
+        rep = (Replicate(),) * mesh.ndim
+        out = segment_max(to_placements(values, mesh, rep).to_local(),
+                          to_placements(index, mesh, rep).to_local(),
+                          num_segments)
+        return DTensor.from_local(out, mesh, rep, run_check=False)
     out = values.new_full((num_segments,) + tuple(values.shape[1:]),
                           -math.inf)
     return out.scatter_reduce_(0, _expand_index(index, values), values,

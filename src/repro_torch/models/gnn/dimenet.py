@@ -14,8 +14,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import optimize, special
+from torch.distributed.tensor import DTensor
 
-from ...dist.sharding import NULL_CTX, ShardCtx
+from ...dist.sharding import NULL_CTX, ShardCtx, rowwise
 from ..common import ParamSpec
 from .common import (GraphBatch, bessel_rbf, cosine_cutoff, edge_vectors,
                      graph_energy, norm, scatter_sum)
@@ -172,16 +173,22 @@ def forward(params, batch: GraphBatch, cfg: DimeNetConfig,
                                                    cfg.n_radial),
                             dtype=torch.float32, device=d.device)  # (L, R)
     d_kj = d[kj_s]
-    # per-l evaluation keeps every transient at (T, R)
-    jls = []
-    for l in range(cfg.n_spherical):
-        x = roots[l][None, :] * (d_kj / cfg.cutoff)[:, None]   # (T, R)
-        jls.append(spherical_jn(l, x)[..., l])
-    jl = torch.stack(jls, dim=1)                    # (T, L, R)
-    pl = legendre(cfg.n_spherical - 1, cosang)      # (T, L)
-    sbf = (jl * pl[:, :, None]).reshape(-1, cfg.n_spherical * cfg.n_radial)
-    sbf = ctx.constrain(sbf.masked_fill_(~tmask[:, None], 0.0),
-                        "edges", None)
+
+    def basis(d_kj, cosang, tmask):
+        # per-l evaluation keeps every transient at (T, R)
+        jls = []
+        for l in range(cfg.n_spherical):
+            x = roots[l][None, :] * (d_kj / cfg.cutoff)[:, None]  # (T, R)
+            jls.append(spherical_jn(l, x)[..., l])
+        jl = torch.stack(jls, dim=1)                # (T, L, R)
+        pl = legendre(cfg.n_spherical - 1, cosang)  # (T, L)
+        sbf = (jl * pl[:, :, None]).reshape(-1, cfg.n_spherical *
+                                            cfg.n_radial)
+        return sbf.masked_fill_(~tmask[:, None], 0.0)
+    # a triplet's basis is its own: on DTensors each rank makes its rows'
+    sbf = rowwise(basis, d_kj, cosang, tmask) \
+        if isinstance(d_kj, DTensor) else basis(d_kj, cosang, tmask)
+    sbf = ctx.constrain(sbf, "edges", None)
 
     # ---- embedding block ------------------------------------------------
     h = params["embed"][batch.species.long()]

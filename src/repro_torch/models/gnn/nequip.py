@@ -18,8 +18,9 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from ...dist.sharding import NULL_CTX, ShardCtx
+from ...dist.sharding import NULL_CTX, ShardCtx, reshape, rowwise
 from ..common import ParamSpec
 from .common import (GraphBatch, bessel_rbf, cosine_cutoff, edge_vectors,
                      graph_energy, scatter_sum)
@@ -149,7 +150,7 @@ def forward(params, batch: GraphBatch, cfg: NequIPConfig,
 
     for i in range(cfg.n_layers):
         h = F.silu(rbf @ params[f"l{i}_rw0"] + params[f"l{i}_rb0"])
-        w = (h @ params[f"l{i}_rw1"]).reshape(-1, len(PATHS), C) * \
+        w = reshape(h @ params[f"l{i}_rw1"], (-1, len(PATHS), C)) * \
             fc[:, :, None]                                 # (E, P, C)
         agg = {lo: 0.0 for lo in (0, 1, 2)}
         for pi, (li, lf, lo) in enumerate(PATHS):
@@ -158,8 +159,10 @@ def forward(params, batch: GraphBatch, cfg: NequIPConfig,
                 prod = {li: xj}
             else:
                 yf = Y[lf][:, None]                        # (E, 1, ...)
-                prod = cart_tp(li, xj, lf, yf.expand(
-                    (xj.shape[0], C) + tuple(Y[lf].shape[1:])))
+                yf = yf.expand((xj.shape[0], C) + tuple(Y[lf].shape[1:]))
+                prod = rowwise(lambda a, b: cart_tp(li, a, lf, b),
+                               xj, yf) if isinstance(xj, DTensor) \
+                    else cart_tp(li, xj, lf, yf)
             if lo not in prod:
                 continue
             m = prod[lo]

@@ -37,6 +37,19 @@ Numerics follow the reference's dtypes op by op:
   (descending, ties to the lower index) by a stable sort, the
   reference's stable argsort, left ``searchsorted``, capacity cut and
   sentinel slot (``routing_plan``).
+
+On a ``DeviceMesh`` context the parameters and activations are DTensors
+(``dist/sharding.py``), and each step GSPMD takes implicitly is taken
+here by name, so the values are the reference's at the same mesh: a
+reshape that merges or splits a sharded dim first replicates what it
+cannot keep (``sharding.reshape``); the GLU's stacked ``w_in`` is
+multiplied a half at a time, which keeps its ``mlp`` shards; each rank
+takes the embedding rows its vocab shard holds, summed across the
+shards (one nonzero row each); attention runs on each rank's own batch
+rows and kv heads; the MoE's routing, gather and combine run on each
+rank's own token groups (one group a ``data`` rank, as the reference
+blocks them) with only the expert matmuls on DTensors; decode writes
+each rank's own rows of the cache.
 """
 from __future__ import annotations
 
@@ -45,9 +58,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import NULL_CTX, ShardCtx
+from ..dist.sharding import NULL_CTX, ShardCtx, contiguous_stride, \
+    is_split, local_param, shard_offset, to_placements
+from ..dist.sharding import reshape as _rs
 from .common import ParamSpec, act_fn, cross_entropy_loss, rms_norm, rope
 
 # an expert weight cast to the compute dtype is made this many bytes at
@@ -206,8 +222,39 @@ def _recorded(fn, *args):
 def _embed(params, tokens, cfg: TransformerConfig) -> torch.Tensor:
     """``embed.astype(cd)[tokens] * sqrt(d_model)``; the rows are taken
     before the cast, which gives the same values."""
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    if isinstance(params["embed"], DTensor):
+        x = _embed_split(params["embed"], tokens).to(cfg.compute_dtype)
+    else:
+        x = params["embed"][tokens].to(cfg.compute_dtype)
     return x * weak(x, math.sqrt(cfg.d_model))
+
+
+def _embed_split(embed: DTensor, tokens) -> DTensor:
+    """``embed[tokens]`` of a DTensor table: each rank takes the rows of
+    its own vocab shard (zeros for the others' tokens) for its own batch
+    rows, and the shards' partial rows are summed at once, which is one
+    nonzero row each: the same values."""
+    mesh, nd = embed.device_mesh, embed.device_mesh.ndim
+    vocab = [m for m, p in enumerate(embed.placements) if p.is_shard(0)]
+    tp = tokens.placements if isinstance(tokens, DTensor) else \
+        (Replicate(),) * nd
+    rows = tuple(Shard(0) if p.is_shard(0) and m not in vocab
+                 else Replicate() for m, p in enumerate(tp))
+    lay = tuple(Shard(0) if m in vocab else Replicate() for m in range(nd))
+    batch = [m for m, p in enumerate(rows) if p.is_shard(0)]
+    table = to_placements(embed, mesh, lay)
+    off = shard_offset(table, 0)
+    local = local_param(embed, mesh, lay, batch)
+    tok = to_placements(tokens, mesh, rows).to_local().long() - off
+    inside = (tok >= 0) & (tok < local.shape[0])
+    x = local[torch.clamp(tok, 0, local.shape[0] - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    shape = tuple(tokens.shape) + (embed.shape[1],)
+    x = DTensor.from_local(x, mesh, tuple(
+        Partial() if m in vocab else rows[m] for m in range(nd)),
+        run_check=False, shape=shape, stride=contiguous_stride(shape))
+    return to_placements(x, mesh, rows)
 
 
 def _head(params, cfg: TransformerConfig) -> torch.Tensor:
@@ -256,22 +303,12 @@ def _expert_matmul(a: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
                       for i in range(0, w.shape[0], per)])
 
 
-def moe_ffn(lp, x, cfg: TransformerConfig, ctx: ShardCtx):
-    """x: (T, d) -> (T, d), plus the Switch load-balancing aux loss.
-
-    Group-local dispatch as the reference's: tokens are blocked into G
-    groups (``ctx.data_groups()``, 1 on a replicating context), each
-    group routes its tokens into E experts of ``cap`` slots, and every
-    heavy move is a row gather."""
-    T, d = x.shape
-    E, k, f = cfg.n_experts, cfg.top_k, cfg.expert_ff
-    cd = cfg.compute_dtype
-    G = ctx.data_groups()
-    while T % G:
-        G //= 2
-    Tg = T // G
-    cap = max(1, int(math.ceil(Tg * k * cfg.capacity_factor / E)))
-    logits = x.float() @ lp["router"].float()
+def _route(x, router, cfg: TransformerConfig):
+    """Top-k routing of the (T, d) tokens ``x``: the normalised top-k
+    weights and expert ids (T, k), and the aux loss's mean gate and
+    routed fraction per expert."""
+    E, k = cfg.n_experts, cfg.top_k
+    logits = x.float() @ router.float()
     gates = torch.softmax(logits, dim=-1)                     # (T, E)
     # lax.top_k: descending, ties to the lower index
     topw, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
@@ -279,42 +316,150 @@ def moe_ffn(lp, x, cfg: TransformerConfig, ctx: ShardCtx):
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     me = gates.mean(dim=0)
     ce = torch.nn.functional.one_hot(topi[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(me * ce)
+    return topw, topi, me, ce
 
-    xg = ctx.constrain(x.reshape(G, Tg, d), "batch", None, "embed")
+
+def _dispatch(xg, topi, cap: int, cfg: TransformerConfig):
+    """Each group's tokens gathered into its experts' slots: ``buf``
+    (G, E, cap, d), and the routing plan (``routing_plan``)."""
+    G, Tg, d = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
     src_tok, slot_of = routing_plan(topi.reshape(G, Tg * k), cap, E, k)
-    wsg = topw.reshape(G, Tg * k)
-    grp = torch.arange(G, device=x.device)[:, None]
+    grp = torch.arange(G, device=xg.device)[:, None]
     xp = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1)
-    buf = xp[grp, src_tok].reshape(G, E, cap, d).transpose(0, 1)
-    buf = ctx.constrain(buf, "expert", "batch", None, "embed")
+    return xp[grp, src_tok].reshape(G, E, cap, d), slot_of
 
-    g = 2 if cfg.glu else 1
-    h = _expert_matmul(buf.reshape(E, G * cap, d),
-                       lp["e_in"].reshape(E, d, g * f), cd)
-    h = h.reshape(E, G, cap, g, f)
-    if cfg.glu:
-        h = act(cfg.activation)(h[..., 0, :]) * h[..., 1, :]
-    else:
-        h = act(cfg.activation)(h[..., 0, :])
-    out_buf = _expert_matmul(h.reshape(E, G * cap, f), lp["e_out"], cd)
-    out_buf = ctx.constrain(out_buf.reshape(E, G, cap, d),
-                            "expert", "batch", None, "embed")
-    out_buf = out_buf.transpose(0, 1)                         # (G, E, cap, d)
-    out_buf = ctx.constrain(out_buf, "batch", "expert", None, "embed")
 
+def _combine(out_buf, slot_of, wsg, k: int):
+    """(G, E, cap, d) expert outputs -> each group's (G, Tg, d) tokens,
+    their k choices weighted and summed."""
+    G, E, cap, d = out_buf.shape
+    grp = torch.arange(G, device=out_buf.device)[:, None]
     flat = torch.cat([out_buf.reshape(G, E * cap, d),
                       out_buf.new_zeros((G, 1, d))], dim=1)
     rows = flat[grp, slot_of]                                 # (G, Tg*k, d)
     rows = rows * wsg.to(rows.dtype)[..., None]
-    y = rows.reshape(G, Tg, k, d).sum(dim=2)
+    return rows.reshape(G, -1, k, d).sum(dim=2)
+
+
+def _experts(lp, buf, cfg: TransformerConfig, ctx: ShardCtx):
+    """(E, G, cap, d) slots through their experts' FFNs -> (E, G, cap, d),
+    laid out as the reference constrains it."""
+    E, G, cap, d = buf.shape
+    f, cd = cfg.expert_ff, cfg.compute_dtype
+    buf = ctx.constrain(buf, "expert", "batch", None, "embed")
+    g = 2 if cfg.glu else 1
+    split = is_split(lp["e_in"])
+
+    def mm(a, w):
+        return torch.matmul(a, w.to(cd)) if split else \
+            _expert_matmul(a, w, cd)
+    h = mm(_rs(buf, (E, G * cap, d)), _rs(lp["e_in"], (E, d, g * f)))
+    h = _rs(h, (E, G, cap, g, f))
+    if cfg.glu:
+        h = act(cfg.activation)(h[..., 0, :]) * h[..., 1, :]
+    else:
+        h = act(cfg.activation)(h[..., 0, :])
+    out_buf = mm(_rs(h, (E, G * cap, f)), lp["e_out"])
+    return ctx.constrain(_rs(out_buf, (E, G, cap, d)),
+                         "expert", "batch", None, "embed")
+
+
+def _groups(T: int, ctx: ShardCtx) -> int:
+    G = ctx.data_groups()
+    while T % G:
+        G //= 2
+    return G
+
+
+def moe_ffn(lp, x, cfg: TransformerConfig, ctx: ShardCtx):
+    """x: (T, d) -> (T, d), plus the Switch load-balancing aux loss.
+
+    Group-local dispatch as the reference's: tokens are blocked into G
+    groups (``ctx.data_groups()``, 1 on a replicating context), each
+    group routes its tokens into E experts of ``cap`` slots, and every
+    heavy move is a row gather."""
+    if isinstance(x, DTensor):
+        return _moe_ffn_split(lp, x, cfg, ctx)
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = _groups(T, ctx)
+    Tg = T // G
+    cap = max(1, int(math.ceil(Tg * k * cfg.capacity_factor / E)))
+    topw, topi, me, ce = _route(x, lp["router"], cfg)
+    aux = E * torch.sum(me * ce)
+
+    xg = ctx.constrain(x.reshape(G, Tg, d), "batch", None, "embed")
+    buf, slot_of = _dispatch(xg, topi, cap, cfg)
+    out_buf = _experts(lp, buf.transpose(0, 1), cfg, ctx)
+    out_buf = out_buf.transpose(0, 1)                         # (G, E, cap, d)
+    out_buf = ctx.constrain(out_buf, "batch", "expert", None, "embed")
+    y = _combine(out_buf, slot_of, topw.reshape(G, Tg * k), k)
     y = ctx.constrain(y, "batch", None, "embed")
     return y.reshape(T, d), aux
+
+
+def _moe_ffn_split(lp, x, cfg: TransformerConfig, ctx: ShardCtx):
+    """``moe_ffn`` on DTensors. Where the G groups are the ``data``
+    ranks' rows, each rank routes, gathers and combines its own group
+    (the reference's vmap over groups, split as its data axis splits
+    them); otherwise every rank does all G groups. Only the expert
+    matmuls run on DTensors: the (G, E, ...) <-> (E, G, ...) reshards
+    around them are the expert-parallel exchange."""
+    mesh = x.device_mesh
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = _groups(T, ctx)
+    Tg = T // G
+    cap = max(1, int(math.ceil(Tg * k * cfg.capacity_factor / E)))
+    target = ctx.rules.get("batch")
+    data = (target,) if isinstance(target, str) else tuple(target or ())
+    dims = [i for i, nm in enumerate(mesh.mesh_dim_names) if nm in data]
+    D = math.prod(mesh.size(i) for i in dims)
+    own = D > 1 and G == D         # one group a data rank
+    rows = tuple(Shard(0) if own and i in dims else Replicate()
+                 for i in range(mesh.ndim))
+    gl = 1 if own else G           # groups on this rank
+    # a rank's own groups: the router's gradient from them is a part of
+    # the sum over the data ranks
+    part = tuple(Partial() if own and i in dims else Replicate()
+                 for i in range(mesh.ndim))
+    xl = to_placements(x, mesh, rows).to_local()
+    router = to_placements(lp["router"], mesh, (Replicate(),) * mesh.ndim
+                           ).to_local(grad_placements=part)
+    topw, topi, me, ce = _route(xl, router, cfg)
+    # the means of D equal groups sum to the global means
+    me, ce = (DTensor.from_local(t / (D if own else 1), mesh, part,
+                                 run_check=False) for t in (me, ce))
+    aux = E * torch.sum(me * ce)
+
+    buf, slot_of = _dispatch(xl.reshape(gl, Tg, d), topi, cap, cfg)
+    egrp = tuple(Shard(1) if own and i in dims else Replicate()
+                 for i in range(mesh.ndim))
+    buf = DTensor.from_local(buf.transpose(0, 1), mesh, egrp,
+                             run_check=False, shape=(E, G, cap, d),
+                             stride=contiguous_stride((E, G, cap, d)))
+    out_buf = _experts(lp, buf, cfg, ctx).transpose(0, 1)     # (G, E, cap, d)
+    out_buf = ctx.constrain(out_buf, "batch", "expert", None, "embed")
+    ob = to_placements(out_buf, mesh, rows).to_local()
+    y = _combine(ob, slot_of, topw.reshape(gl, Tg * k), k)
+    y = DTensor.from_local(y, mesh, rows, run_check=False,
+                           shape=(G, Tg, d),
+                           stride=contiguous_stride((G, Tg, d)))
+    y = ctx.constrain(y, "batch", None, "embed")
+    return _rs(y, (T, d)), aux
 
 
 def dense_ffn(lp, x, cfg: TransformerConfig):
     cd = cfg.compute_dtype
     d, g, f = lp["w_in"].shape
+    if is_split(lp["w_in"]):
+        # (d, g, f) -> (d, g f) would merge the mlp shards into a
+        # strided layout: one product a half keeps them
+        w = lp["w_in"].to(cd)
+        hs = [x @ w[:, i] for i in range(g)]
+        h = act(cfg.activation)(hs[0])
+        return (h * hs[1] if cfg.glu else h) @ lp["w_out"].to(cd)
     h = (x @ lp["w_in"].to(cd).reshape(d, g * f)).reshape(-1, g, f)
     if cfg.glu:
         h = act(cfg.activation)(h[:, 0]) * h[:, 1]
@@ -343,7 +488,7 @@ def _ffn(lp, hin, cfg: TransformerConfig, ctx: ShardCtx):
 def _project(x, w, cd):
     """``einsum("bsd,dhq->bshq", x, w.astype(cd))``."""
     d, h, q = w.shape
-    return (x @ w.to(cd).reshape(d, h * q)).reshape(*x.shape[:-1], h, q)
+    return _rs(x @ _rs(w.to(cd), (d, h * q)), (*x.shape[:-1], h, q))
 
 
 def attention(lp, x, positions, cfg: TransformerConfig, ctx: ShardCtx,
@@ -374,27 +519,14 @@ def attention(lp, x, positions, cfg: TransformerConfig, ctx: ShardCtx,
         out = _blockwise_self_attention(q, k, v, positions, cfg, ctx)
     else:
         ck, cv = kv_cache                                 # (B, Sc, Hkv, hd)
-        k = torch.cat([ck.to(cd), k], dim=1)
-        v = torch.cat([cv.to(cd), v], dim=1)
-        S_kv = k.shape[1]
-        qg = q.reshape(B, S, Hkv, rep, hd)
-        # preferred_element_type=float32: bf16 operands, float32 result
-        scores = torch.einsum("bshrd,bthd->bhrst", qg.float(), k.float())
-        scores = scores / math.sqrt(hd)
-        # cache slots 0..cache_len-1 are valid history; the S fresh slots
-        # (appended at the end) are causal among themselves
-        S_c = S_kv - S
-        dev = x.device
-        valid_cache = (torch.arange(S_c, device=dev)[None, None, :]
-                       < cache_len[:, None, None]).expand(B, S, S_c)
-        ar = torch.arange(S, device=dev)
-        valid_new = (ar[None, None, :] <= ar[None, :, None]).expand(B, S, S)
-        mask = torch.cat([valid_cache, valid_new], dim=2)
-        scores = torch.where(mask[:, None, None], scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(cd)
-        out = torch.einsum("bhrst,bthd->bshrd", probs, v)
-        out = out.reshape(B, S, H, hd)
-    y = out.reshape(B, S, H * hd) @ lp["wo"].to(cd).reshape(H * hd, d)
+        qg = _rs(q, (B, S, Hkv, rep, hd))
+        if isinstance(qg, DTensor):
+            out = _on_own_heads(_attend_cache, qg, (ck, cv, k, v),
+                                (cache_len,))
+        else:
+            out = _attend_cache(qg, ck, cv, k, v, cache_len)
+        out = _rs(out, (B, S, H, hd))
+    y = _rs(out, (B, S, H * hd)) @ _rs(lp["wo"].to(cd), (H * hd, d))
     return y, new_kv
 
 
@@ -408,15 +540,28 @@ def _blockwise_self_attention(q, k, v, positions, cfg: TransformerConfig,
     B, S, Hkv, hd = k.shape
     H = q.shape[2]
     rep = H // Hkv
-    cd = q.dtype
+    qg = _rs(q, (B, S, Hkv, rep, hd))
+    qg = ctx.constrain(qg, "batch", "act_seq", "kv_heads", None, None)
+    if isinstance(qg, DTensor):
+        out = _on_own_heads(_running_softmax, qg, (k, v), (positions,),
+                            kv_block=kv_block)
+    else:
+        out = _running_softmax(qg, k, v, positions, kv_block=kv_block)
+    out = _rs(out, (B, S, H, hd))
+    return ctx.constrain(out, "batch", "act_seq", None, None)
+
+
+def _running_softmax(qg, k, v, positions, kv_block: int):
+    """The running softmax of ``_blockwise_self_attention`` on grouped
+    queries (B, S, Hkv, rep, hd): (B, S, Hkv, rep, hd) in q's dtype."""
+    B, S, Hkv, rep, hd = qg.shape
+    cd = qg.dtype
     blk = min(kv_block, S)
     while S % blk:
         blk //= 2
-    qg = q.reshape(B, S, Hkv, rep, hd)
-    qg = ctx.constrain(qg, "batch", "act_seq", "kv_heads", None, None)
     q32 = qg.float()
     scale = 1.0 / math.sqrt(hd)
-    dev = q.device
+    dev = qg.device
     m = torch.full((B, S, Hkv, rep), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((B, S, Hkv, rep), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, S, Hkv, rep, hd), dtype=torch.float32, device=dev)
@@ -424,9 +569,52 @@ def _blockwise_self_attention(q, k, v, positions, cfg: TransformerConfig,
         m, l, acc = _recorded(_attend_block, q32, k[:, j:j + blk],
                               v[:, j:j + blk], positions,
                               positions[:, j:j + blk], m, l, acc, scale, cd)
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(cd)
-    out = out.reshape(B, S, H, hd)
-    return ctx.constrain(out, "batch", "act_seq", None, None)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(cd)
+
+
+def _attend_cache(qg, ck, cv, k, v, cache_len):
+    """Decode attention of grouped queries (B, S, Hkv, rep, hd) over the
+    cache's (B, Sc, Hkv, hd) keys and values, the first ``cache_len``
+    valid, and causally over the S fresh ones."""
+    B, S, Hkv, rep, hd = qg.shape
+    cd = qg.dtype
+    k = torch.cat([ck.to(cd), k], dim=1)
+    v = torch.cat([cv.to(cd), v], dim=1)
+    S_kv = k.shape[1]
+    # preferred_element_type=float32: bf16 operands, float32 result
+    scores = torch.einsum("bshrd,bthd->bhrst", qg.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    # cache slots 0..cache_len-1 are valid history; the S fresh slots
+    # (appended at the end) are causal among themselves
+    S_c = S_kv - S
+    dev = qg.device
+    valid_cache = (torch.arange(S_c, device=dev)[None, None, :]
+                   < cache_len[:, None, None]).expand(B, S, S_c)
+    ar = torch.arange(S, device=dev)
+    valid_new = (ar[None, None, :] <= ar[None, :, None]).expand(B, S, S)
+    mask = torch.cat([valid_cache, valid_new], dim=2)
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cd)
+    return torch.einsum("bhrst,bthd->bshrd", probs, v)
+
+
+def _on_own_heads(fn, qg, kv, per_row, **kw):
+    """``fn(qg, *kv, *per_row)`` on each rank's own batch rows and kv
+    heads: attention is independent across both, so no rank needs
+    another's. ``qg`` (B, S, Hkv, rep, hd) and each of ``kv`` (B, ., Hkv,
+    .) keep their dim-0 and dim-2 shards, ``per_row`` tensors (B, ...)
+    their dim-0 ones; every other dim is gathered."""
+    mesh = qg.device_mesh
+    lay = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+                for p in qg.placements)
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in lay)
+    out = fn(to_placements(qg, mesh, lay).to_local(),
+             *(to_placements(t, mesh, lay).to_local() for t in kv),
+             *(to_placements(t, mesh, rows).to_local() for t in per_row),
+             **kw)
+    return DTensor.from_local(out, mesh, lay, run_check=False,
+                              shape=qg.shape,
+                              stride=contiguous_stride(qg.shape))
 
 
 def _attend_block(q32, kk, vv, q_pos, k_pos, m, l, acc, scale: float, cd):
@@ -463,9 +651,9 @@ def _layer_fn(lp, x, positions, cfg, ctx):
     h, _ = attention(lp, rms_norm(x, lp["ln_attn"]), positions, cfg, ctx)
     x = x + h
     x = ctx.constrain(x, "batch", "act_seq", "embed")
-    hin = rms_norm(x, lp["ln_ffn"]).reshape(B * S, d)
+    hin = _rs(rms_norm(x, lp["ln_ffn"]), (B * S, d))
     out, aux = _ffn(lp, hin, cfg, ctx)
-    x = x + out.reshape(B, S, d)
+    x = x + _rs(out, (B, S, d))
     x = ctx.constrain(x, "batch", "act_seq", "embed")
     return x, aux
 
@@ -528,6 +716,30 @@ def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
     }
 
 
+def _write_split(c, new, cache_len):
+    """``decode_step``'s cache write on a DTensor layer cache ``c`` (B,
+    S, Hkv, hd): each rank writes its own rows and heads of the fresh
+    (B, 1, Hkv, hd) ``new`` into its piece. A cache split along its
+    sequence takes the reference's one-hot add instead."""
+    mesh = c.device_mesh
+    if any(p.is_shard(1) or p.is_partial() for p in c.placements):
+        oh = torch.arange(c.shape[1], device=c.device)[None, :] == \
+            cache_len[:, None]                                # (B, S)
+        c.add_(oh[:, :, None, None].to(c.dtype) * new.to(c.dtype))
+        return
+    # new and cache_len laid out as c's (B, ., Hkv, hd) dims are
+    nl = to_placements(new, mesh, c.placements).to_local()[:, 0]
+    lens = to_placements(cache_len, mesh, tuple(
+        p if p.is_shard(0) else Replicate()
+        for p in c.placements)).to_local()
+    cl = c.to_local()
+    S_max = cl.shape[1]
+    rows = torch.arange(cl.shape[0], device=cl.device)
+    live = (lens < S_max)[:, None, None]
+    slot = torch.clamp(lens, max=S_max - 1)
+    cl[rows, slot] = torch.where(live, nl.to(cl.dtype), cl[rows, slot])
+
+
 def decode_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
                 ctx: ShardCtx = NULL_CTX):
     """One decode step. tokens: (B,) ints; cache_len: (B,) current
@@ -553,9 +765,13 @@ def decode_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
                                 cfg, ctx, kv_cache=(ck, cv),
                                 cache_len=cache_len)
         x = x + h
-        hin = rms_norm(x, lp["ln_ffn"]).reshape(B, -1)
+        hin = _rs(rms_norm(x, lp["ln_ffn"]), (B, -1))
         out, _ = _ffn(lp, hin, cfg, ctx)
-        x = x + out.reshape(B, 1, -1)
+        x = x + _rs(out, (B, 1, -1))
+        if isinstance(ck, DTensor):
+            _write_split(ck, nk, cache_len)
+            _write_split(cv, nv, cache_len)
+            continue
         ck[rows, slot] = torch.where(live, nk[:, 0].to(ck.dtype),
                                      ck[rows, slot])
         cv[rows, slot] = torch.where(live, nv[:, 0].to(cv.dtype),

@@ -24,7 +24,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..dist.sharding import SPLIT_MESHES_ITEM
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
+
+from ..dist.sharding import placements
+from ..models.common import map_with_specs
 from .tree import leaves, leaves_with_paths, unflatten
 
 
@@ -92,14 +96,26 @@ def _load(path: str, like: torch.Tensor, device) -> torch.Tensor:
     return t.to(device=device, dtype=like.dtype)
 
 
+class _Spec:
+    """A spec tuple held as one leaf (``tree.leaves`` walks tuples)."""
+
+    def __init__(self, spec):
+        self.spec = tuple(spec)
+
+
 def restore(ckpt_dir: str, state_like: Any, step: Optional[int] = None,
-            shardings: Any = None, device=None) -> Tuple[Any, Dict]:
+            shardings: Any = None, device=None,
+            mesh: Optional[DeviceMesh] = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``state_like``; returns ``(state,
     extra)``. Each leaf takes its ``state_like`` leaf's dtype and goes
-    to ``device``, or where that leaf is. ``shardings`` (the same tree
-    of spec tuples, ``dist.sharding.spec_shardings``) may only
-    replicate: a spec that splits an array raises
-    ``NotImplementedError``, as ``ShardCtx.constrain`` does."""
+    to ``device``, or where that leaf is. ``shardings`` is a tree of
+    spec tuples in the structure of the state
+    (``dist.sharding.spec_shardings``); with a ``DeviceMesh`` every leaf
+    comes back as a DTensor laid out by its spec, each rank keeping its
+    own piece of the saved array (the reference's ``device_put``).
+    Without one a spec that splits an array raises
+    ``NotImplementedError``, as ``ShardCtx.constrain`` does on a mesh
+    that has no ranks."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -110,13 +126,15 @@ def restore(ckpt_dir: str, state_like: Any, step: Optional[int] = None,
     if len(like) != len(manifest["leaves"]):
         raise ValueError(f"structure mismatch: {len(like)} leaves, the "
                          f"checkpoint has {len(manifest['leaves'])}")
-    # a spec tuple's entries are leaves of the tree: any mesh axis in
-    # one splits an array
-    if shardings is not None and any(
-            s is not None for s in leaves(shardings)):
-        raise NotImplementedError(
-            "restore: the shardings split an array; the port has no split "
-            f"layouts yet ({SPLIT_MESHES_ITEM})")
+    specs = [None] * len(like)
+    if shardings is not None:
+        specs = [s.spec for s in leaves(map_with_specs(
+            lambda _, spec: _Spec(spec), state_like, shardings))]
+        split = [s for s in specs if any(e is not None for e in s)]
+        if split and not isinstance(mesh, DeviceMesh):
+            raise NotImplementedError(
+                f"restore: the shardings split an array ({split[0]}); a "
+                "split needs a DeviceMesh")
     out = []
     for i, leaf in enumerate(like):
         t = _load(os.path.join(src, "arrays", f"{i}.npy"), leaf,
@@ -125,6 +143,9 @@ def restore(ckpt_dir: str, state_like: Any, step: Optional[int] = None,
             raise ValueError(f"{manifest['leaves'][i]['path']}: shape "
                              f"{tuple(t.shape)}, the state's is "
                              f"{tuple(leaf.shape)}")
+        if specs[i] is not None and isinstance(mesh, DeviceMesh):
+            t = distribute_tensor(t, mesh, placements(specs[i], mesh),
+                                  src_data_rank=None)
         out.append(t)
     return unflatten(state_like, out), manifest["extra"]
 

@@ -20,12 +20,21 @@ elementwise, updates a leaf ``UPDATE_CHUNK`` elements at a time, so its
 temporaries stay small beside a large stacked leaf (gemma-2b's ``w_in``
 is 4.8 GB in float32; whole, its ~7 temporaries took 34 GB); the values
 are the whole leaf's.
+
+On DTensors (the split layouts) AdamW updates each rank's local shard,
+the gradient and moments first laid out as the parameter is: a flat
+view of a sharded leaf is no DTensor layout, and the update is
+elementwise, so the values are the same. Adafactor's row and column
+means reduce across shards through DTensor. New slots and accumulators
+of a DTensor leaf are DTensors over its mesh (``zeros_of``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from .tree import leaves, tree_map, unflatten
 
@@ -75,6 +84,46 @@ def _flat_out(t: torch.Tensor) -> torch.Tensor:
     return t.view(-1)
 
 
+def zeros_of(p, shape, dtype, drop=None):
+    """Zeros of ``shape`` and ``dtype`` beside ``p``: on a DTensor ``p``
+    a DTensor over its mesh, sharded as ``p`` is on the dims it keeps
+    (``drop``: the one dim of ``p`` the shape leaves out)."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    out = []
+    for pl in p.placements:
+        if not pl.is_shard():
+            out.append(Replicate())
+            continue
+        d = pl.dim
+        if drop is not None:
+            drop_d = drop % p.dim()
+            if d == drop_d:
+                out.append(Replicate())
+                continue
+            d -= d > drop_d
+        out.append(Shard(d))
+    return dtensor_zeros(tuple(shape), dtype=dtype,
+                         device_mesh=p.device_mesh, placements=out)
+
+
+def _local_like(x, p):
+    """``x`` laid out as ``p`` and taken local, where ``p`` is a
+    DTensor; else ``x``."""
+    if not isinstance(p, DTensor):
+        return x
+    if not isinstance(x, DTensor):
+        raise TypeError("a DTensor parameter needs DTensor gradients and "
+                        "moments")
+    if tuple(x.placements) != tuple(p.placements):
+        x = x.redistribute(p.device_mesh, p.placements)
+    return x.to_local()
+
+
+def _scalar(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def _step_scalar(params):
     return torch.zeros((), dtype=torch.int32,
                        device=leaves(params)[0].device)
@@ -86,7 +135,7 @@ def _step_scalar(params):
 
 def adamw_init(params):
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return zeros_of(p, p.shape, torch.float32)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": _step_scalar(params)}
 
@@ -94,11 +143,17 @@ def adamw_init(params):
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: OptConfig, donate: bool = False):
     step = state["step"] + 1
-    t = step.float()
+    t = _scalar(step).float()
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
 
     def upd(g, m, v, p):
+        if isinstance(p, DTensor):
+            new = upd(*(_local_like(x, p) for x in (g, m, v, p)))
+            return tuple(DTensor.from_local(x, p.device_mesh, p.placements,
+                                            run_check=False, shape=p.shape,
+                                            stride=p.stride())
+                         for x in new)
         outs = (p, m, v) if donate else tuple(
             torch.empty(x.shape, dtype=x.dtype, device=x.device)
             for x in (p, m, v))
@@ -136,12 +191,12 @@ def _factored(shape, min_dim) -> bool:
 
 def adafactor_init(params, cfg: OptConfig):
     def one(p):
-        f32, dev = torch.float32, p.device
+        f32 = torch.float32
         if _factored(p.shape, cfg.min_dim_factored):
-            return {"vr": torch.zeros(p.shape[:-1], dtype=f32, device=dev),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                      dtype=f32, device=dev)}
-        return {"v": torch.zeros(p.shape, dtype=f32, device=dev)}
+            return {"vr": zeros_of(p, p.shape[:-1], f32, drop=-1),
+                    "vc": zeros_of(p, p.shape[:-2] + p.shape[-1:], f32,
+                                   drop=-2)}
+        return {"v": zeros_of(p, p.shape, f32)}
     return {"slots": unflatten(params, [one(p) for p in leaves(params)]),
             "step": _step_scalar(params)}
 

@@ -16,7 +16,11 @@ autograd. The loop layers the production concerns on top:
 
 A state is ``{"params", "opt", "step", "nan_skips"}``, the reference's
 tree (``step`` and ``nan_skips`` int32 scalars), so a checkpoint crosses
-between the two packages.
+between the two packages. The step runs on DTensor states as it runs on
+plain ones (the split layouts, ``launch/steps.py``): the loss is
+replicated before its gradient, a microbatch takes each rank's own rows
+(``microbatch``), and on fake tensors (a dry-run) the non-finite check,
+which has no value to read, takes the updating branch.
 """
 from __future__ import annotations
 
@@ -25,9 +29,13 @@ import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate
 
+from ..dist.sharding import contiguous_stride
 from . import checkpoint
-from .optimizer import OptConfig, clip_by_global_norm, make_optimizer
+from .optimizer import OptConfig, clip_by_global_norm, make_optimizer, \
+    zeros_of
 from .tree import leaves, tree_map, unflatten
 
 
@@ -49,11 +57,46 @@ def value_and_grad(loss_fn: Callable, params, batch):
     gets a zero gradient, as ``jax.grad`` gives it."""
     ps = [p.detach().requires_grad_() for p in leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(unflatten(params, ps), batch)
+        loss = _replicated(loss_fn(unflatten(params, ps), batch))
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, ps)]
     return loss.detach(), unflatten(params, grads)
+
+
+def _replicated(x):
+    """A DTensor sharded or partial on some mesh dimension, replicated
+    (a loss is one value on every rank); anything else as it is."""
+    if isinstance(x, DTensor) and any(not p.is_replicate()
+                                      for p in x.placements):
+        return x.redistribute(x.device_mesh,
+                              [Replicate()] * x.device_mesh.ndim)
+    return x
+
+
+def finite_on_host(flag) -> bool:
+    """The host's reading of a step's finiteness flag. A fake tensor (a
+    dry-run) has no value: its step is the one that updates, the branch
+    the reference's compiled ``lax.cond`` holds."""
+    if isinstance(flag, DTensor):
+        flag = flag.to_local()
+    return True if is_fake(flag) else bool(flag)
+
+
+def microbatch(x, i: int, n: int):
+    """Microbatch ``i`` of ``n`` of ``x``'s leading axis: rows [i B/n,
+    (i+1) B/n), as the reference's reshape and scan take them. A DTensor
+    split on that axis gives each rank's ``i``-th block of its own rows
+    instead: the same rows in another grouping, so the step's loss and
+    gradient are the same sums in another order, and no row moves."""
+    if isinstance(x, DTensor) and any(p.is_shard(0) for p in x.placements):
+        loc = x.to_local()
+        part = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))[i]
+        shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+        return DTensor.from_local(part, x.device_mesh, x.placements,
+                                  run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptConfig,
@@ -84,15 +127,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig,
         if not isinstance(batch, dict):
             raise TypeError("microbatches > 1 split a dict batch of "
                             f"tensors, not a {type(batch).__name__}")
-        mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                           + tuple(v.shape[1:])) for k, v in batch.items()}
         loss = torch.zeros((), dtype=torch.float32,
                            device=leaves(params)[0].device)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                               device=p.device), params)
+        grads = tree_map(lambda p: zeros_of(p, p.shape, adt), params)
         for i in range(microbatches):
-            li, gi = value_and_grad(loss_fn, params,
-                                    {k: v[i] for k, v in mb.items()})
+            li, gi = value_and_grad(loss_fn, params, {
+                k: microbatch(v, i, microbatches) for k, v in batch.items()})
             grads = tree_map(lambda a, g: a + (g / microbatches).to(a.dtype),
                              grads, gi)
             loss = loss + li / microbatches
@@ -102,7 +142,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig,
         loss, grads = _value_and_grad(state["params"], batch)
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-        if bool(finite):
+        if finite_on_host(finite):
             new_p, new_opt = opt_update(grads, state["opt"],
                                         state["params"], donate=donate)
         else:

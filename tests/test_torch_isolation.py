@@ -378,3 +378,28 @@ def test_training_clis_refuse_without_cuda(cli):
                          text=True, timeout=300)
     assert out.returncode == 2 and out.stdout == ""
     assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+
+
+def test_modules_walked_include_the_launch_steps():
+    mods = _modules()
+    for m in ("repro_torch.launch.mesh", "repro_torch.launch.steps",
+              "repro_torch.launch.dryrun", "repro_torch.dist.sharding"):
+        assert m in mods
+
+
+def test_dryrun_cli_refuses_without_cuda_unless_cpu_is_asked_for():
+    """The dry-run makes fake CUDA tensors by default: without a card it
+    exits 2 and prints nothing; ``--device cpu`` runs the cell."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
+           "dlrm-rm2/serve_p99", "--config", "smoke"]
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    out = subprocess.run(cmd + ["--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.splitlines()[-1])
+    assert rec["arch"] == "dlrm-rm2" and rec["n_devices"] == 256

@@ -31,6 +31,10 @@ from repro_torch.dist import sharding  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.gnn import gat  # noqa: E402
 from repro_torch.serve import PartitionServer  # noqa: E402
+from torch.distributed.tensor import DTensor, Shard  # noqa: E402
+from torch.distributed.tensor.experimental import \
+    implicit_replication  # noqa: E402
+from torch_fake_mesh import fake_mesh  # noqa: E402
 
 CPU = "cpu"
 LOGICAL = sorted(sharding.DEFAULT_RULES) + [None, "unnamed"]
@@ -118,9 +122,16 @@ def test_constrain_is_the_identity_where_nothing_splits():
     split = sharding.ShardCtx(duck_mesh(("data", "model"), (2, 4)))
     for axes in (("nodes", None, None), (None, "heads", None)):
         with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1, item \(d\)"):
+                           match="a split needs a DeviceMesh"):
             split.constrain(x, *axes)
     assert split.constrain(x, "feat", "embed", None) is x
+    # on a DeviceMesh the split happens: rank 0 keeps its own piece
+    with fake_mesh((2, 4), ("data", "model")) as mesh:
+        ctx = sharding.ShardCtx(mesh)
+        assert ctx.constrain(x, "feat", "embed", None) is x
+        y = ctx.constrain(x, "nodes", "heads", None)
+        assert tuple(y.placements) == (Shard(0), Shard(1))
+        assert torch.equal(y.to_local(), x[:8, :2])
 
 
 def test_a_model_on_a_pe_context_equals_it_without_one():
@@ -142,9 +153,15 @@ def test_a_model_on_a_pe_context_equals_it_without_one():
     want = gat.forward(params, batch, pcfg)
     got = gat.forward(params, batch, pcfg, sharding.pe_ctx(4))
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="a split needs a DeviceMesh"):
         gat.forward(params, batch, pcfg, sharding.ShardCtx(
             duck_mesh(("data",), (2,))))
+    # on a DeviceMesh the same split runs: its nodes are laid out over
+    # the data ranks (a fake group: shapes and layouts, not values)
+    with fake_mesh((2,), ("data",)) as mesh, implicit_replication():
+        out = gat.forward(params, batch, pcfg, sharding.ShardCtx(mesh))
+        assert isinstance(out, DTensor) and out.shape == want.shape
 
 
 def test_server_shard_ctx_spawns_nothing():

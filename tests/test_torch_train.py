@@ -56,6 +56,8 @@ from repro_torch.models.common import init_params  # noqa: E402
 from repro_torch.train import checkpoint, data, optimizer, \
     trainer  # noqa: E402
 from repro_torch.train.tree import leaves_with_paths, tree_map  # noqa: E402
+from torch.distributed.tensor import Shard  # noqa: E402
+from torch_fake_mesh import fake_mesh  # noqa: E402
 
 CPU = "cpu"
 OPT_SHARE = 1e-6
@@ -259,8 +261,16 @@ def test_checkpoints_cross_between_the_packages(tmp_path, opt):
     specs = tree_map(lambda t: (None,) * t.dim(), state)
     checkpoint.restore(b, like, shardings=specs)
     specs["params"]["embed"] = ("model", None)
-    with pytest.raises(NotImplementedError, match="split"):
+    with pytest.raises(NotImplementedError,
+                       match="a split needs a DeviceMesh"):
         checkpoint.restore(b, like, shardings=specs)
+    # with a DeviceMesh the split restores: rank 0 keeps its rows
+    with fake_mesh((2,), ("model",)) as mesh:
+        got, _ = checkpoint.restore(b, like, shardings=specs, mesh=mesh)
+        emb = got["params"]["embed"]
+        assert tuple(emb.placements) == (Shard(0),)
+        n = emb.shape[0] // 2
+        assert torch.equal(emb.to_local(), state["params"]["embed"][:n])
 
 
 def test_bfloat16_leaves_are_written_as_the_reference_writes_them(tmp_path):
