@@ -36,9 +36,11 @@ exits non-zero if any one fails:
      with heavy rows (more arcs than the slab's 32 lanes, the rest in
      overflow: the kernels' heavy-row paths), among them a row of
      30,000 arcs, a label (block) held in both the slab and the
-     overflow, a heavy row with no admissible target and one label over
-     30,000 arcs; and the distributed engine's forms: lp_move's heavy
-     rows in the distributed admission form (the labels' budgets in the
+     overflow, a heavy row with no admissible target, one label over
+     30,000 arcs, rows at each width-class boundary (33, 256, 257, 767,
+     1025, 1024 and 2049 lanes: a warp's rows, hub ranges ending on a
+     range boundary) and K = 2^20; and the distributed engine's forms:
+     lp_move's heavy rows in the distributed admission form (the labels' budgets in the
      slab and the overflow) and bal_scores on a PE's label table (lanes
      into [locals, ghosts, sentinel], the ghost rows empty, validity a
      prefix of the rows), with and without heavy rows;
@@ -149,7 +151,8 @@ exits non-zero if any one fails:
      and each worker process's CPU seconds;
   9. hub graphs: ``Partitioner().run`` of ba at n=2^18 and rhg at 2^17
      (both at 2^20 with ``--hubs-only``, which runs phases 1 and 9 only
-     and prints no contract line; seed 17, k=16, preset fast) at
+     and prints no contract line, as ``--ragged-only`` runs phases 1 and
+     2; seed 17, k=16, preset fast) at
      ``kernel="auto"`` (fused, hub rows through the heavy-row paths) and
      ``kernel="composed"`` on the card: equal cuts,
      bit-identical assignments, no kernel-fallback record, every kernel
@@ -158,7 +161,12 @@ exits non-zero if any one fails:
      overflow bytes beside the CSR's (held to the ``slab_width`` rule's
      bound); the lp_move and bal_scores calls with the most heavy-row
      lanes held to their plain versions (exact) and timed beside their
-     bounds (rows ``lp_move_heavy`` and ``bal_scores_heavy``);
+     bounds (rows ``lp_move_heavy`` and ``bal_scores_heavy``), each with
+     its device launches (a captured CUDA graph: at most 5 for lp_move,
+     2 for bal_scores), device time, the heavy-row kernel's own device
+     time (the captured graph cut after that launch, replayed with and
+     without it) and the same cut to each width class of
+     ``kernels/heavy.py`` alone (warp-class rows, hub rows), held too;
  10. the distributed engine at P=1: ``Partitioner(backend="dist")`` with
      ``devices=1`` in a one-rank NCCL group, on phase 4's graph (rgg2d
      2^20, k=16, eps=0.03, preset fast) in both memory models (the
@@ -412,6 +420,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 # when phase 10 came, and ba to 2^18 when phase 12 came, to keep the
 # whole script near 600 s; both at 2^20 with --hubs-only
 HUB_SIZES = {"ba": 1 << 18, "rhg": 1 << 17}
+# device launches a heavy call may take (nodes of a captured CUDA graph):
+# lp_move's memset, heavy-row kernel and its three own; bal_scores' row
+# kernel and heavy-row kernel
+HEAVY_LAUNCHES = {"lp_move_heavy": 5, "bal_scores_heavy": 2}
 HUB_SIZES_FULL = {"ba": 1 << 20, "rhg": 1 << 20}
 MAIN_PATH = ("lp_move", "seg_merge", "bal_scores", "greedy_pick")
 # phase 10: the distributed engine's memory models, and the JAX
@@ -624,11 +636,17 @@ def ragged_cases(torch, rng, dev):
 # in overflow): (R, {row: degree}, labels, what); "split" draws few labels,
 # so a heavy row holds one label in its slab and its overflow; "no
 # target" makes nothing admissible for row 0, which holds no own label
+# "class boundaries": rows at the heavy-row kernels' width classes
+# (kernels/heavy.py: a warp a row up to 256 lanes, hub rows in 1024-lane
+# ranges; 257 + 767 lanes end on a range boundary)
+CLASS_EDGES = {0: 33, 1: 256, 2: 257, 3: 767, 4: 1025, 5: 2049, 6: 1024}
 HUB_CASES = ((4096, {7: 30000, **{r: 33 + 9 * r for r in range(9, 209)}},
               3000, "hub rows: one of 30,000 arcs, 200 of 33-1824"),
              (1000, {0: 40, 1: 30000, 5: 700}, 12, "split labels"),
              (600, {0: 5000, 3: 64}, 50, "no target"),
-             (300, {2: 30000}, 1, "one label over 30,000 arcs"))
+             (300, {2: 30000}, 1, "one label over 30,000 arcs"),
+             (2048, CLASS_EDGES, 200, "class boundaries: 33, 256, 257, 767, "
+              "1025, 2049, 1024 lanes"))
 
 
 def hub_graph(rng, R, hubs, N):
@@ -688,19 +706,23 @@ def hub_cases(torch, rng, dev):
         args = [_i32(torch, x, dev) for x in (nlab, ew, ncw, own,
                                               rng.integers(1, 4, R))]
         over = tuple(_i32(torch, x, dev) for x in (
-            ov.rows, ov.ptr, o_lab, ov.w, cw[o_lab]))
+            ov.rows, ov.ptr, o_lab, ov.w, cw[o_lab], ov.hubs, ov.ranges))
         cases.append(("lp_move", lp_move.lp_move_chunk,
                       lp_ref.lp_move_chunk_ref,
                       (*args, W, int(rng.integers(0, 1000)),
                        int(rng.integers(0, 2**32)), nl + 1),
                       dict(overflow=over), what))
     for restricted, (R, hubs, K, what) in zip(
-            (False, True, False, True),
+            (False, True, False, True, False, True, False),
             ((4096, {0: 30000, **{r: 40 + 11 * r for r in range(5, 150)}},
               64, "hub rows: one of 30,000 arcs, 145 of 95-1679"),
              (1000, {3: 30000, 8: 100}, 4, "split blocks"),
              (2000, {1: 2000}, 8192, "K=8192"),
-             (500, {4: 30000}, 16, "one block over 30,000 arcs"))):
+             (500, {4: 30000}, 16, "one block over 30,000 arcs"),
+             (2048, CLASS_EDGES, 16, "class boundaries"),
+             (2048, CLASS_EDGES, 64, "class boundaries"),
+             (2048, {0: 256, 1: 3000, 2: 200}, 1 << 20,
+              "K=2^20, beyond a warp's table"))):
         idx, ew, ov = hub_graph(rng, R, hubs, R)
         n = R - R // 8
         labels = rng.integers(0, K, R)
@@ -764,7 +786,8 @@ def dist_cases(torch, rng, dev):
         args = [_i32(torch, x, dev) for x in (nlab, ew, ncw, own,
                                               rng.integers(1, 4, R))]
         over = tuple(_i32(torch, x, dev) for x in (
-            ov.rows, ov.ptr, o_lab, ov.w, cw[o_lab], bud[o_lab]))
+            ov.rows, ov.ptr, o_lab, ov.w, cw[o_lab], bud[o_lab], ov.hubs,
+            ov.ranges))
         cases.append(("lp_move", lp_move.lp_move_chunk,
                       lp_ref.lp_move_chunk_ref,
                       (*args, W, int(rng.integers(0, 1000)),
@@ -1531,14 +1554,18 @@ def bound_parts(kind: str, args, kw, out):
                              tuple(o[s] for o in out)) for s in range(S)]
         return sum(m for m, _ in parts), sum(o for _, o in parts)
     if kind.endswith("_heavy"):
-        # the light call's count on the slab, plus each overflow arc read
-        # once and ~16 operations a lane of a heavy row (table insert,
-        # admission, the tie chain)
+        # the light call's count on the slab (every valid lane read once),
+        # plus the overflow and its plan read once; operations: the light
+        # rows' count, and ~16 a heavy row's lane (slab and overflow: a
+        # hash-table insert, admission, the tie chain), since a heavy row
+        # sums its labels by a table, with no pairwise compare
         over = kw["overflow"]
         moved, ops = bound_parts(kind[:-len("_heavy")], args,
                                  {k: v for k, v in kw.items()
                                   if k != "overflow"}, out)
-        lanes = over[0].numel() * args[0].shape[1] + over[2].numel()
+        deg = (args[0][over[0].long()] >= 0).sum(1).double()
+        ops -= float((2 * deg * deg + 16 * deg).sum())
+        lanes = float(deg.sum()) + over[2].numel()
         return moved + nbytes(*over), ops + 16.0 * lanes
     tensors = [a for a in args if hasattr(a, "numel")]
     tensors += [v for v in kw.values() if hasattr(v, "numel")]
@@ -2851,6 +2878,154 @@ def heavy_lanes(args, kw):
     return ov[0].numel() * args[0].shape[1] + ov[2].numel()
 
 
+def heavy_subset(torch, args, kw, hub):
+    """The call's keyword arguments with its overflow cut to the heavy
+    rows of one width class (``kernels/heavy.py``: ``hub`` False the
+    warp-class rows, True the hub rows), their plan rebuilt; None if the
+    call has no such row. The rows left out are scored on their slab
+    lanes only: the cut call times one class, and is held to the plain
+    version on the same cut."""
+    from repro_torch.kernels import heavy
+
+    ov = kw["overflow"]
+    dev = ov[0].device
+    D = args[0].shape[1]
+    extra = np.diff(ov[1].cpu().numpy().astype(np.int64))
+    keep = (D + extra > heavy.WARP_LANES) == hub
+    if not keep.any():
+        return None
+    ptr = np.zeros(int(keep.sum()) + 1, np.int64)
+    np.cumsum(extra[keep], out=ptr[1:])
+    hubs, ranges = heavy.heavy_plan(D + extra[keep])
+    arcs = torch.from_numpy(np.flatnonzero(np.repeat(keep, extra))).to(dev)
+    rows = ov[0][torch.from_numpy(np.flatnonzero(keep)).to(dev)]
+    new = (rows, _i32(torch, ptr, dev), *(a[arcs] for a in ov[2:-2]),
+           _i32(torch, hubs, dev), _i32(torch, ranges, dev))
+    return dict(kw, overflow=new)
+
+
+def node_ms(torch, call, node, reps=20):
+    """Device ms of the ``node``-th device launch of ``call`` alone: the
+    call captured as a CUDA graph (one stream: a chain of launches), two
+    clones of it, its first ``node + 1`` launches and its first ``node``,
+    each replayed ``reps`` times in turn behind a sleep kernel, and the
+    difference of their times. The launches before the node set up its
+    inputs (zeroed scratch) in both. Returns (ms, the node's kind)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(rc, what):
+        check(rc == 0, f"{what} failed ({rc})")
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    raw = vp(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    deps = {}
+    for v in nodes:
+        k = ctypes.c_size_t(0)
+        ok(cu.cuGraphNodeGetDependencies(vp(v), None, ctypes.byref(k)),
+           "cuGraphNodeGetDependencies")
+        deps[v] = k.value
+    chain = [v for v in nodes if deps[v] == 0]
+    check(len(chain) == 1, "the captured call is not one chain of launches")
+    while len(chain) < n.value:
+        k = ctypes.c_size_t(1)
+        nxt = (vp * 1)()
+        ok(cu.cuGraphNodeGetDependentNodes(vp(chain[-1]), nxt,
+                                           ctypes.byref(k)),
+           "cuGraphNodeGetDependentNodes")
+        check(k.value == 1, "the captured call is not one chain of launches")
+        chain.append(nxt[0])
+    kind = ctypes.c_int(-1)
+    cu.cuGraphNodeGetType(vp(chain[node]), ctypes.byref(kind))
+    stream = vp(torch.cuda.current_stream().cuda_stream)
+    execs = []
+    for keep in (node + 1, node):
+        clone = vp()
+        ok(cu.cuGraphClone(ctypes.byref(clone), raw), "cuGraphClone")
+        for v in chain[keep:]:
+            mine = vp()
+            ok(cu.cuGraphNodeFindInClone(ctypes.byref(mine), vp(v), clone),
+               "cuGraphNodeFindInClone")
+            ok(cu.cuGraphDestroyNode(mine), "cuGraphDestroyNode")
+        ex = vp()
+        ok(cu.cuGraphInstantiateWithFlags(ctypes.byref(ex), clone,
+                                          ctypes.c_ulonglong(0)),
+           "cuGraphInstantiateWithFlags")
+        execs.append((ex, clone))
+    launch = [lambda ex=ex: ok(cu.cuGraphLaunch(ex, stream), "cuGraphLaunch")
+              for ex, _ in execs]
+    times = [0.0, 0.0]
+    for _ in range(2):
+        for i in (0, 1):
+            times[i] += device_ms(torch, [launch[i]], reps)
+    for ex, clone in execs:
+        cu.cuGraphExecDestroy(ex)
+        cu.cuGraphDestroy(clone)
+    del graph
+    torch.cuda.synchronize()
+    return (times[0] - times[1]) / 2, {0: "kernel", 2: "memset"}.get(
+        kind.value, f"type {kind.value}")
+
+
+# the heavy-row kernel's place in a heavy call's chain of launches:
+# lp_move's after its memset, bal_scores' after its row kernel
+HEAVY_NODE = 1
+
+
+def heavy_device(torch, name, fn, args, kw, where, most):
+    """A heavy-row call's device launches (graph nodes, at most ``most``),
+    device ms per call and no-stream-wait check (``kernel_device``), and
+    the heavy-row kernel's own device ms apart from the other launches of
+    the call (``node_ms``)."""
+    out = kernel_device(torch, name, fn, args, kw, where, None)
+    check(out["device_launches"] <= most,
+          f"{name}: {out['device_launches']} device launches per call "
+          f"{where}; at most {most}")
+    own, kind = node_ms(torch, lambda: fn(*args, **kw), HEAVY_NODE)
+    check(kind == "kernel", f"{name}: launch {HEAVY_NODE} is a {kind}")
+    out["heavy_kernel_ms"] = own
+    say(f"  {name}: the heavy-row kernel's own device time {own:.4f} ms "
+        f"per call {where} (CUDA graph of the call up to it, with and "
+        "without it)")
+    return out
+
+
+def heavy_classes(torch, name, fn, plain, args, kw, most):
+    """The call cut to each width class (``heavy_subset``), held to the
+    plain version and timed by ``heavy_device``: {class: record}."""
+    from repro_torch.kernels import heavy
+
+    out = {}
+    D = args[0].shape[1]
+    for cls, hub in (("warp", False), ("hub", True)):
+        sub = heavy_subset(torch, args, kw, hub)
+        if sub is None:
+            say(f"  {name}: no {cls}-class row in this call")
+            continue
+        got = fn(*args, **sub)
+        torch.cuda.synchronize()
+        err, _, _ = compare(name, got, plain(*args, **sub))
+        ov = sub["overflow"]
+        rows, lanes = ov[0].numel(), ov[0].numel() * D + ov[2].numel()
+        say(f"  {name}, {cls} class only ({rows} rows, {lanes} lanes; "
+            f"{'> ' if hub else '<= '}{heavy.WARP_LANES} lanes a row): "
+            f"exact (max abs err {err})")
+        rec = heavy_device(torch, name, fn, args, sub, f"({cls} class only)",
+                           most)
+        out[cls] = dict(rec, rows=rows, lanes=lanes)
+    return out
+
+
 class BuildBytes:
     """Wraps the ELL build functions (``build_move_chunks``,
     ``build_balance_ell``) and keeps (function, n, m, shape, slab bytes,
@@ -2981,6 +3156,11 @@ def phase_hubs(torch, api, build, sizes=HUB_SIZES):
         rows.append(held_and_timed(torch, name, fn, plain, list(args), kw,
                                    20, sum(c[name] for c in
                                            by_path.values())))
+        most = HEAVY_LAUNCHES[name]
+        rows[-1].update(heavy_device(torch, name, fn, args, kw,
+                                     f"at the {fam} call", most))
+        rows[-1]["by_class"] = heavy_classes(torch, name, fn, plain, args,
+                                             kw, most)
     return rows, by_path
 
 
@@ -4844,6 +5024,14 @@ def hubs_only(torch, api, build) -> int:
     return 0
 
 
+def ragged_only(torch, build) -> int:
+    """``--ragged-only``: phases 1 and 2."""
+    smi = phase_environment(torch, build)
+    phase_ragged(torch, torch.device("cuda", 0))
+    say(smi)
+    return 0
+
+
 def dist_only(torch, api, build) -> int:
     """``--dist-only``: phases 1, 2 and 10."""
     smi = phase_environment(torch, build)
@@ -4906,6 +5094,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hubs-only", action="store_true",
                     help="only build the kernels and run phase 9, with "
                          "both hub graphs at 2^20 (no contract line)")
+    ap.add_argument("--ragged-only", action="store_true",
+                    help="only build the kernels and run phase 2 (no "
+                         "contract line)")
     ap.add_argument("--dist-only", action="store_true",
                     help="only build the kernels and run phases 2 and 10 "
                          "(no contract line)")
@@ -4956,6 +5147,8 @@ def main(argv=None) -> int:
           "TF32 matmuls are still on")
     if args.hubs_only:
         return hubs_only(torch, api, build)
+    if args.ragged_only:
+        return ragged_only(torch, build)
     if args.dist_only:
         return dist_only(torch, api, build)
     if args.mesh_only:

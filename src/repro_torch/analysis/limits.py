@@ -10,7 +10,7 @@ limits. Three rules take VMEM001–003's places.
   comments: 256-byte aligned pieces, the constants read from the
   sources) differs by more than 5% from the built libraries' own
   ``lp_move_scratch_bytes`` / ``seg_merge_scratch_bytes`` somewhere on a
-  grid of (S, R, labels, H, lanes) and L. It needs the libraries, so it
+  grid of (S, R, labels, H, G, hubs) and L. It needs the libraries, so it
   runs on the card; on the CPU the report notes that it was not run.
   ``bal_round`` takes no scratch: its limits fall under LIM002.
 * ``LIM002`` — a fit predicate on the ops side and a wrapper's launch
@@ -73,8 +73,8 @@ def _aligned(pieces: List[Piece]) -> int:
     return sum((b + 255) // 256 * 256 for _, b in pieces)
 
 
-def lp_move_inventory(S: int, R: int, num_labels: int, H: int,
-                      lanes: int) -> List[Piece]:
+def lp_move_inventory(S: int, R: int, num_labels: int, H: int, G: int,
+                      hubs: int) -> List[Piece]:
     """The scratch pieces of ``lp_move`` (``lp_move.cu``, ``Scratch``)."""
     c = cu_constants("common.cuh", "lp_move.cu")
     r, nl = S * R, S * num_labels
@@ -82,14 +82,18 @@ def lp_move_inventory(S: int, R: int, num_labels: int, H: int,
     pieces = [("pmove", 4 * r), ("light", 4 * r), ("newcw", 4 * r),
               ("key0", 8 * r), ("row0", 4 * r), ("key1", 8 * r),
               ("row1", 4 * r)]
-    if H:
-        pieces.append(("tab", 32 * lanes))       # 8 ints a heavy lane
+    # a walking hub range's partial winners: PMAX of 4 ints
+    pieces.append(("part", 16 * c["PMAX"] * G))
     pieces += [("din", 4 * nl), ("dout", 4 * nl), ("movedin", 4 * nl),
                ("ctr", 4 * S * c["N_COUNTERS"]),
                ("hist", 4 * S * c["MAX_PASSES"] * c["RADIX"]),
                ("cstat", 8 * tiles)]
     if H:
         pieces.append(("heavy", 4 * r))          # one flag a row
+    # hub tables: 2 HUB_RANGE slots of 4 ints a hub range; two tickets a
+    # hub row and the role ticket
+    pieces += [("tab", 32 * c["HUB_RANGE"] * G),
+               ("ticket", 4 * (2 * hubs + 1) if hubs else 0)]
     return pieces
 
 
@@ -108,10 +112,11 @@ def _grids() -> Dict[str, List[dict]]:
     for S in (1, 4, 64):
         for R in (1, 67, 4096, 262144):
             for labels in (2, 4097, 1 << 20):
-                heavy = ((0, 0), (3, 3 * 64 + 500)) if S == 1 else ((0, 0),)
-                for H, lanes in heavy:
-                    lp.append(dict(S=S, R=R, num_labels=labels, H=H,
-                                   lanes=lanes))
+                heavy = ((0, 0, 0), (3, 0, 0), (3, 2, 1)) if S == 1 \
+                    else ((0, 0, 0),)
+                for H, G, hubs in heavy:
+                    lp.append(dict(S=S, R=R, num_labels=labels, H=H, G=G,
+                                   hubs=hubs))
     seg = [dict(L=L) for L in (1, 2, 100, 1024, 4095, 4096, 65536, 1 << 20,
                                (1 << 22) + 1)]
     return {"lp_move": lp, "seg_merge": seg}
@@ -128,7 +133,7 @@ def library_bytes(kernel: str, point: dict) -> int:
     if kernel == "lp_move":
         from ..kernels.lp_move.lp_move import _scratch_bytes
         return _scratch_bytes(point["S"], point["R"], point["num_labels"],
-                              point["H"], point["lanes"])
+                              point["H"], point["G"], point["hubs"])
     from ..kernels.seg_merge.seg_merge import _scratch_bytes
     return _scratch_bytes(point["L"])
 

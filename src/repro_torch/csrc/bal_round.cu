@@ -52,15 +52,29 @@
 //
 // bal_scores_heavy: the slab's width is capped (kernels/lp_move/ops.py::
 // slab_width), so a hub keeps its first D arcs in the slab and the rest in
-// an overflow CSR. After bal_scores (which scores a heavy row on its slab
-// lanes alone), one CTA a heavy row rescores it over the whole row and
-// overwrites its outputs: the CTA clears the row's open-addressing table
-// in global scratch (2 slots a lane), adds each arc's weight into its
-// block's slot (int32 atomics, exact in any order; a warp's lanes of one
-// block add up first), then walks the distinct blocks with the admission
-// and the tie chain of warp_row, as four CTA reductions, and writes the
-// row by put_row. Bound: the heavy rows' lanes (8 bytes each, plus a label
-// gather), read once; the tables stay in L2.
+// an overflow CSR. bal_scores' row kernel leaves the heavy rows alone
+// (each CTA finds its own in the ascending row list by two warp-wide
+// 32-ary searches and marks them in shared memory: no per-row flag to
+// clear, so no third launch), and one launch after it scores them over
+// their whole rows, in the two width classes of
+// lp_move_heavy (common.cuh; the plan, kernels/heavy.py, is built with the
+// ELL): a row of at most WARP_LANES = 256 lanes is one warp's, which
+// loads its tiles' ids and weights at once, gathers their blocks, sums
+// each distinct block's weight (common.cuh::add_tile) in its own
+// shared-memory table of 2 slots a distinct block (at most min(lanes,
+// K); 4 KB at most), its own block's tables loaded meanwhile, and runs the
+// admission and tie chain of warp_row as four redux, with no global table
+// and no __syncthreads; a longer row is cut into HUB_RANGE = 1024-lane
+// ranges of the hub-lane space, one CTA each, which add their sums into
+// the row's table in global scratch (2 min(lanes, K) slots: a row holds
+// at most K distinct blocks, so the table has at most 2 K slots and stays
+// in L2; it is sized by the lanes as well, so no K is too large for it),
+// and the row's last CTA (a ticket after a fence) walks it and writes the
+// row by put_row. A warp's table is sized by the row's lanes too, so it
+// fits shared memory for any K. The row kernel zeroes the hub tables and
+// tickets, so a heavy call stays two launches. Bound: the heavy rows'
+// lanes (8 bytes each, plus a label gather), read once, and O(1)
+// operations a lane.
 //
 // greedy_pick replaces kernels/bal_round/bal_round.py::greedy_pick (body
 // _pick_kernel): the sequential greedy application of the ranked pool of M
@@ -315,12 +329,36 @@ bal_scores_rows(const int* __restrict__ idx, const int* __restrict__ ew,
                 const int* __restrict__ bw, const int* __restrict__ lm,
                 const int* __restrict__ par, const int* __restrict__ fb,
                 int R, int D, int n, int K, uint32_t salt,
-                float* __restrict__ rel, int* __restrict__ tgt) {
+                float* __restrict__ rel, int* __restrict__ tgt,
+                int* __restrict__ zero, int zero_words,
+                const int* __restrict__ hrow, int H) {
   const int lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * WARPS * 32 + (threadIdx.x & ~31);
+  // the heavy-row kernel's hub tables and tickets, for the launch after
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < zero_words;
+       i += gridDim.x * blockDim.x)
+    zero[i] = 0;
+  // the CTA's heavy rows (hrow ascending), one bit each: the heavy-row
+  // kernel scores them, so they are skipped here
+  __shared__ unsigned s_heavy[WARPS];
+  const int first = blockIdx.x * WARPS * 32;   // the CTA's first row
+  if (H) {                                 // uniform over the CTA
+    if (threadIdx.x < WARPS) s_heavy[threadIdx.x] = 0u;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const int hi = lower_bound_warp(hrow, H, first + WARPS * 32);
+      for (int i = lower_bound_warp(hrow, H, first) + lane; i < hi;
+           i += 32) {
+        const unsigned d = (unsigned)(__ldg(hrow + i) - first);
+        if (d < WARPS * 32u) atomicOr(&s_heavy[d >> 5], 1u << (d & 31));
+      }
+    }
+    __syncthreads();
+  }
+  const int r0 = first + (threadIdx.x & ~31);
   if (r0 >= R) return;                     // the whole warp is past R
   const int r = r0 + lane;
   const bool live = r < R;
+  const bool hv = H && (s_heavy[threadIdx.x >> 5] >> lane & 1u);
   const int rr = live ? r : R - 1;         // a row past R repeats the last
   bool bad = false;             // an id outside its table: trap at the end
   Own w = own_row(rr, labels, vw, R, K, bad);
@@ -347,6 +385,7 @@ bal_scores_rows(const int* __restrict__ idx, const int* __restrict__ ew,
       }
       __syncwarp();
     }
+    if (hv) continue;                      // staged with the warp's rows
 #pragma unroll
     for (int c0 = 0; c0 < TILE_L; c0 += CHUNK) {
       const int j = j0 + c0;
@@ -401,9 +440,9 @@ bal_scores_rows(const int* __restrict__ idx, const int* __restrict__ ew,
       }
     }
   }
-  if (live && !full) put_row(r, n, w, bs, bl, oc, rel, tgt);
+  if (live && !hv && !full) put_row(r, n, w, bs, bl, oc, rel, tgt);
   // rows with more distinct blocks than a thread's table: the warp's
-  unsigned wide = __ballot_sync(FULL_MASK, live && full);
+  unsigned wide = __ballot_sync(FULL_MASK, live && !hv && full);
   while (wide) {
     const int src = __ffs(wide) - 1;
     wide &= wide - 1;
@@ -413,89 +452,202 @@ bal_scores_rows(const int* __restrict__ idx, const int* __restrict__ ew,
   if (bad) __trap();
 }
 
-// The heavy rows, one CTA each, after bal_scores_rows: hrow[h] is the row,
-// hptr[h] .. hptr[h + 1] its overflow arcs (oidx / ow), after its D slab
-// lanes. tab holds 4 (H D + hptr[H]) ints: row h's table of T = 2 (D + its
-// overflow) slots (key, conn) at 4 (h D + hptr[h]).
-template <bool RES>
-__global__ void __launch_bounds__(HEAVY)
-bal_scores_heavy_rows(const int* __restrict__ idx, const int* __restrict__ ew,
-                      const int* __restrict__ labels,
-                      const int* __restrict__ vw, const int* __restrict__ bw,
-                      const int* __restrict__ lm, const int* __restrict__ par,
-                      const int* __restrict__ fb, int R, int D, int n, int K,
-                      uint32_t salt, const int* __restrict__ hrow,
-                      const int* __restrict__ hptr,
-                      const int* __restrict__ oidx,
-                      const int* __restrict__ ow, int* __restrict__ tab,
-                      float* __restrict__ rel, int* __restrict__ tgt) {
-  __shared__ int sh[33];
-  __shared__ int s_oc;
+// ---- heavy rows --------------------------------------------------------
+
+struct HeavyArgs {
+  const int *idx, *ew, *labels, *vw, *bw, *lm, *par, *fb;
+  int R, D, n, K;
+  uint32_t salt;
+  int H;
+  const int *hrow, *hptr, *oidx, *ow;
+  HubPlan plan;
+  int2* tab;     // hub tables: (key, conn)
+  int* ticket;   // one a hub row
+  float* rel;
+  int* tgt;
+};
+
+// A warp's tiles of heavy row r (its slab row at `row`, its overflow arcs
+// from a0): lane p = p0 + step q + this lane of tile q, none at p >= lim.
+// Every tile's ids and weights are loaded before any is used, then every
+// tile's blocks gathered: l[q] the block (-1: none), x[q] the weight.
+__device__ __forceinline__ void heavy_tiles(const HeavyArgs& a, size_t row,
+                                            int a0, int p0, int step,
+                                            int lim, int (&l)[ROW_TILES],
+                                            int (&x)[ROW_TILES], bool& bad) {
   const int lane = threadIdx.x & 31;
-  const int h = blockIdx.x, r = hrow[h];
-  if (r < 0 || r >= R) __trap();
-  const int a0 = hptr[h], lanes = D + (hptr[h + 1] - a0), T = 2 * lanes;
-  int* key = tab + (size_t)4 * ((size_t)h * D + a0);
+#pragma unroll
+  for (int q = 0; q < ROW_TILES; ++q) {
+    const int p = p0 + step * q + lane;
+    l[q] = -1;
+    x[q] = 0;
+    if (p < lim) {
+      const bool slab = p < a.D;
+      const size_t i = slab ? row + p : (size_t)a0 + (p - a.D);
+      l[q] = __ldg((slab ? a.idx : a.oidx) + i);
+      x[q] = __ldg((slab ? a.ew : a.ow) + i);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < ROW_TILES; ++q)
+    l[q] = l[q] >= 0 ? block_of(a.labels, l[q], a.R, a.K, bad) : -1;
+}
+
+// A distinct block l of a heavy row with its connectivity c: the own
+// block's c is own_conn; another block is a candidate if it fits (and
+// shares the own block's parent when restricted).
+template <bool RES>
+__device__ __forceinline__ void heavy_candidate(const HeavyArgs& a, int l,
+                                                int c, const Own& w, int& bs,
+                                                int& bc, int& bh, int& bl,
+                                                int& oc, bool& seen) {
+  if (l == w.o) {
+    oc = c;
+    seen = true;
+    return;
+  }
+  const int nb = __ldg(a.bw + l);
+  const bool ok = nb <= wsub(__ldg(a.lm + l), w.v) &&
+                  (!RES || __ldg(a.par + l) == w.op);
+  if (ok && c >= 0) {
+    const int hh = h32(l, a.salt);
+    if (better(c, nb, hh, l, bs, bc, bh, bl)) {
+      bs = c; bc = nb; bh = hh; bl = l;
+    }
+  }
+}
+
+// Warp-class row h by one warp, in its table `s` (2 WARP_SLOTS ints of
+// shared memory, slots for its distinct blocks, at most min(L, K)): a
+// 32-lane tile at a time, the lanes of one block summed by
+// __match_any_sync and one redux, the group's first lane adding the sum
+// into the block's slot; then the slots, one a lane, and the tie chain
+// as four redux. Writes the row by put_row.
+template <bool RES>
+__device__ void heavy_warp_row(const HeavyArgs& a, int h, int* s) {
+  const int lane = threadIdx.x & 31;
+  const int r = a.hrow[h];
+  if (r < 0 || r >= a.R) __trap();
+  const int a0 = a.hptr[h], L = a.D + (a.hptr[h + 1] - a0);
+  if (L > WARP_LANES) return;              // a hub row: the hub CTAs'
+  const int T = warp_slots(min(L, a.K));
+  int* key = s;
   int* conn = key + T;
-  for (int i = threadIdx.x; i < T; i += HEAVY) {
+  for (int i = lane; i < T; i += 32) {
     key[i] = 0;
     conn[i] = 0;
   }
-  if (threadIdx.x == 0) s_oc = 0;
-  __syncthreads();
+  __syncwarp();
   bool bad = false;
-  const size_t row = (size_t)r * D;
-  for (int j0 = 0; j0 < lanes; j0 += HEAVY) {   // uniform: whole warps
-    const int j = j0 + threadIdx.x;
-    int id = -1, x = 0;
-    if (j < D) {
-      id = __ldg(idx + row + j);
-      if (id >= 0) x = __ldg(ew + row + j);
-    } else if (j < lanes) {
-      id = oidx[a0 + (j - D)];
-      x = ow[a0 + (j - D)];
-    }
-    const int l = id >= 0 ? block_of(labels, id, R, K, bad) : -1;
-    const unsigned grp = __match_any_sync(FULL_MASK, l);
-    if (l >= 0) {
-      const int sum = (int)__reduce_add_sync(grp, (unsigned)x);
-      if (lane == __ffs(grp) - 1) atomicAdd(conn + claim_slot(key, T, l), sum);
-    }
+  Own w = own_row(r, a.labels, a.vw, a.R, a.K, bad);   // loads in flight
+  own_tables<RES>(w, a.bw, a.lm, a.par, a.fb, a.K, bad);   // beside the row's
+  int l[ROW_TILES], x[ROW_TILES];
+  heavy_tiles(a, (size_t)r * a.D, a0, 0, 32, L, l, x, bad);
+  auto insert = [&](int lab, int sum, int, int) {
+    atomicAdd(conn + claim_pow2(key, T - 1, lab), sum);
+  };
+#pragma unroll
+  for (int q = 0; q < ROW_TILES; ++q) {
+    if (32 * q >= L) break;
+    add_tile(l[q], x[q], 0, 0, insert);
   }
-  __syncthreads();
-  Own w = own_row(r, labels, vw, R, K, bad);
-  own_tables<RES>(w, bw, lm, par, fb, K, bad);
-  int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX;
-  for (int i = threadIdx.x; i < T; i += HEAVY) {
-    const int k = key[i];
-    if (k == 0) continue;
-    const int l = k - 1, c = conn[i];
-    if (l == w.o) {
-      s_oc = c;   // one slot holds the own block
-      continue;
+  __syncwarp();
+  int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX, oc = 0;
+  bool seen = false;
+  for (int i = lane; i < T; i += 32)
+    if (key[i])
+      heavy_candidate<RES>(a, key[i] - 1, conn[i], w, bs, bc, bh, bl, oc,
+                           seen);
+  int smax, cmin, best;
+  warp_best(bs, bc, bh, bl, smax, cmin, best);
+  const unsigned sn = __ballot_sync(FULL_MASK, seen);
+  oc = sn ? __shfl_sync(FULL_MASK, oc, __ffs(sn) - 1) : 0;
+  if (__any_sync(FULL_MASK, bad)) __trap();
+  if (lane == 0) put_row(r, a.n, w, smax, smax >= 0 ? best : 0, oc, a.rel,
+                         a.tgt);
+}
+
+constexpr int WALK = 16;   // table slots a thread loads at once
+
+// Hub range c by one CTA: for each hub row the range crosses, its lanes
+// there summed per block as a warp-class row sums them, into the row's
+// table of 2 min(L, K) slots at 2 off; the row's last CTA walks that
+// table and runs the tie chain over the CTA.
+template <bool RES>
+__device__ void heavy_hub_range(const HeavyArgs& a, int c, int* sh,
+                                int* s_flag, int* s_oc) {
+  const int warp = threadIdx.x >> 5;
+  const HubPlan& P = a.plan;
+  const int x0 = c * HUB_RANGE;
+  const int x1 = min(x0 + HUB_RANGE, P.hubs[2 * P.n_hub + 1]);
+  bool bad = false;
+  for (int k = P.ranges[c]; k < P.n_hub; ++k) {   // uniform over the CTA
+    const int off = P.hubs[2 * k + 1], end = P.hubs[2 * k + 3];
+    if (off >= x1) break;
+    const int h = P.hubs[2 * k], r = a.hrow[h];
+    if (r < 0 || r >= a.R) __trap();
+    const int a0 = a.hptr[h], L = end - off, T = 2 * min(L, a.K);
+    if (L != a.D + (a.hptr[h + 1] - a0)) __trap();   // not this plan's
+    int2* t = a.tab + 2 * (size_t)off;
+    int* tk = reinterpret_cast<int*>(t);
+    const int p0 = max(x0, off) - off + warp * 32, p1 = min(x1, end) - off;
+    int l[ROW_TILES], x[ROW_TILES];   // a warp's tiles: at most 8 a range
+    heavy_tiles(a, (size_t)r * a.D, a0, p0, HEAVY, p1, l, x, bad);
+    auto insert = [&](int lab, int sum, int, int) {
+      atomicAdd(tk + 2 * claim_slot(tk, T, lab, 2) + 1, sum);
+    };
+#pragma unroll
+    for (int q = 0; q < ROW_TILES; ++q) {
+      if (p0 + HEAVY * q >= p1) break;
+      add_tile(l[q], x[q], 0, 0, insert);
     }
-    const int nb = __ldg(bw + l);
-    const bool ok = nb <= wsub(__ldg(lm + l), w.v) &&
-                    (!RES || __ldg(par + l) == w.op);
-    if (ok && c >= 0) {
-      const int hh = h32(l, salt);
-      if (better(c, nb, hh, l, bs, bc, bh, bl)) {
-        bs = c; bc = nb; bh = hh; bl = l;
+    if (!last_of_row(a.ticket, k, hub_ctas(off, end), s_flag)) continue;
+    Own w = own_row(r, a.labels, a.vw, a.R, a.K, bad);
+    own_tables<RES>(w, a.bw, a.lm, a.par, a.fb, a.K, bad);
+    if (threadIdx.x == 0) *s_oc = 0;
+    __syncthreads();
+    int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX, oc = 0;
+    bool seen = false;
+    for (int i0 = threadIdx.x; i0 < T; i0 += WALK * HEAVY) {
+      int2 e[WALK];
+#pragma unroll
+      for (int q = 0; q < WALK; ++q) {
+        const int i = i0 + q * HEAVY;
+        e[q] = i < T ? __ldcg(t + i) : make_int2(0, 0);
       }
+#pragma unroll
+      for (int q = 0; q < WALK; ++q)
+        if (e[q].x)
+          heavy_candidate<RES>(a, e[q].x - 1, e[q].y, w, bs, bc, bh, bl, oc,
+                               seen);
     }
+    if (seen) *s_oc = oc;                 // one slot holds the own block
+    int smax, cmin, best;
+    cta_best(bs, bc, bh, bl, smax, cmin, best, sh);
+    if (threadIdx.x == 0)
+      put_row(r, a.n, w, smax, smax >= 0 ? best : 0, *s_oc, a.rel, a.tgt);
+    __syncthreads();
   }
-  if (bad) __trap();
-  // the tie chain over the CTA: max score, then the lightest block, the
-  // smallest hash, the smallest label
-  const int smax = cta_reduce<true>(bs, sh);
-  bool tie = bs == smax;
-  const int cmin = cta_reduce<false>(tie ? bc : I32_MAX, sh);
-  tie = tie && bc == cmin;
-  const int hmin = cta_reduce<false>(tie ? bh : I32_MAX, sh);
-  tie = tie && bh == hmin;
-  const int best = cta_reduce<false>(tie ? bl : I32_MAX, sh);
-  if (threadIdx.x == 0)
-    put_row(r, n, w, smax, smax >= 0 ? best : 0, s_oc, rel, tgt);
+  if (__syncthreads_or(bad)) __trap();
+}
+
+// The heavy rows, after bal_scores_rows (which scored them on their slab
+// lanes and cleared the hub tables and tickets): CTAs 0 .. G - 1 the hub
+// ranges, then one warp a heavy row (hub rows' warps leave at once); each
+// heavy row's outputs overwritten.
+template <bool RES>
+__global__ void __launch_bounds__(HEAVY)
+bal_scores_heavy_rows(const __grid_constant__ HeavyArgs a) {
+  __shared__ int s_tab[HEAVY_WARPS][2 * WARP_SLOTS];
+  __shared__ int sh[33];
+  __shared__ int s_flag, s_oc;
+  if ((int)blockIdx.x < a.plan.G) {
+    heavy_hub_range<RES>(a, blockIdx.x, sh, &s_flag, &s_oc);
+    return;
+  }
+  const int warp = threadIdx.x >> 5;
+  const int h = ((int)blockIdx.x - a.plan.G) * HEAVY_WARPS + warp;
+  if (h < a.H) heavy_warp_row<RES>(a, h, s_tab[warp]);
 }
 
 // ---- greedy_pick ---------------------------------------------------------
@@ -611,13 +763,19 @@ __global__ void smem_chase(int steps, long long* out) {
 
 // ell_idx / ell_w (R, D) row-major, labels / vw R entries, the block
 // tables bw / lm / fb (and par, or nullptr for the unrestricted form) K
-// entries. Rows r >= n are not movable. R, D, K >= 1.
+// entries. Rows r >= n are not movable. R, D, K >= 1. The kernel also
+// zeroes zero_words ints at `zero` (bal_scores_heavy's scratch; 0: none)
+// and leaves the H heavy rows hrow (ascending; 0: none) unscored, for
+// bal_scores_heavy to score.
 extern "C" int bal_scores(const int* ell_idx, const int* ell_w,
                           const int* labels, const int* vw, const int* bw,
                           const int* lm, const int* par, const int* fb,
                           int R, int D, int n, int K, uint32_t salt,
-                          float* rel, int* tgt, void* stream) {
-  if (R < 1 || D < 1 || K < 1) return (int)cudaErrorInvalidValue;
+                          float* rel, int* tgt, int* zero, int zero_words,
+                          const int* hrow, int H, void* stream) {
+  if (R < 1 || D < 1 || K < 1 || zero_words < 0 || (zero_words && !zero) ||
+      H < 0 || (H && !hrow))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned grid = (unsigned)((R + WARPS * 32 - 1) / (WARPS * 32));
   const bool vec = D % 32 == 0 && (uintptr_t)ell_idx % 16 == 0 &&
@@ -627,32 +785,45 @@ extern "C" int bal_scores(const int* ell_idx, const int* ell_w,
                     : (vec ? bal_scores_rows<false, true>
                            : bal_scores_rows<false, false>);
   kernel<<<grid, WARPS * 32, 0, s>>>(ell_idx, ell_w, labels, vw, bw, lm, par,
-                                     fb, R, D, n, K, salt, rel, tgt);
+                                     fb, R, D, n, K, salt, rel, tgt, zero,
+                                     zero_words, hrow, H);
   return (int)cudaGetLastError();
 }
 
-// After bal_scores on the same operands: rescore the H >= 1 heavy rows hrow
-// (distinct, in [0, R); each of more than D lanes, its first D in the
-// slab) over their whole rows, their further arcs at hptr[h] .. hptr[h +
-// 1] of oidx / ow (M in all). tab: 4 (H D + M) ints of scratch in any
-// state.
+// After bal_scores on the same operands, which zeroed `scratch` (4
+// HUB_RANGE G + n_hub ints: the hub rows' tables, 2 HUB_RANGE slots of 2
+// ints a hub range, then their tickets, one a hub row): rescore the H >= 1
+// heavy rows hrow (distinct, ascending, in [0, R); each of more than D
+// lanes, its first D in the slab) over their whole rows, their further
+// arcs at hptr[h] .. hptr[h + 1] of oidx / ow (M in all), their hub plan
+// hubs ((n_hub + 1) x 2) / ranges (G) as kernels/heavy.py::heavy_plan
+// builds it.
 extern "C" int bal_scores_heavy(const int* ell_idx, const int* ell_w,
                                 const int* labels, const int* vw,
                                 const int* bw, const int* lm, const int* par,
                                 const int* fb, int R, int D, int n, int K,
                                 uint32_t salt, int H, const int* hrow,
-                                const int* hptr, const int* oidx,
-                                const int* ow, int M, int* tab, float* rel,
-                                int* tgt, void* stream) {
-  if (R < 1 || D < 1 || K < 1 || H < 1 || M < 0 || !hrow || !hptr ||
+                                const int* hptr, const int* hubs, int n_hub,
+                                const int* ranges, int G, const int* oidx,
+                                const int* ow, int M, int* scratch,
+                                float* rel, int* tgt, void* stream) {
+  if (R < 1 || D < 1 || K < 1 || H < 1 || M < 0 || n_hub < 0 || G < 0 ||
+      n_hub > H || !hrow || !hptr || !hubs || (G && (!ranges || !scratch)) ||
       (M && (!oidx || !ow)) ||
-      2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31))
+      2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31) ||
+      (int64_t)G * HUB_RANGE >= ((int64_t)1 << 30))
     return (int)cudaErrorInvalidValue;
+  int2* tab = reinterpret_cast<int2*>(scratch);
+  const HeavyArgs a{ell_idx, ell_w, labels, vw, bw, lm, par, fb, R, D, n, K,
+                    salt, H, hrow, hptr, oidx, ow,
+                    HubPlan{hubs, n_hub, ranges, G}, tab,
+                    scratch ? scratch + 4 * (size_t)HUB_RANGE * G : nullptr,
+                    rel, tgt};
+  const unsigned grid = (unsigned)G +
+                        (unsigned)((H + HEAVY_WARPS - 1) / HEAVY_WARPS);
   auto kernel = par ? bal_scores_heavy_rows<true>
                     : bal_scores_heavy_rows<false>;
-  kernel<<<H, HEAVY, 0, (cudaStream_t)stream>>>(
-      ell_idx, ell_w, labels, vw, bw, lm, par, fb, R, D, n, K, salt, hrow,
-      hptr, oidx, ow, tab, rel, tgt);
+  kernel<<<grid, HEAVY, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // Shared device code of the port's kernels: the uint32 mix hash, int32
 // arithmetic that wraps like XLA's, the CTA-wide pieces of the radix
 // sorts of lp_move and seg_merge (scans, the stable rank of a tile's
-// digits, the decoupled look-back over tiles), and the per-row label
-// tables and CTA reductions of the heavy-row paths of lp_move and
-// bal_scores.
+// digits, the decoupled look-back over tiles), and the label tables,
+// hub plan, tickets and tie-chain reductions of the heavy-row paths of
+// lp_move and bal_scores.
 //
 // Every source includes this header and builds into its own shared
 // library, so everything here has internal linkage (static / anonymous
@@ -244,22 +244,161 @@ __device__ int lookback_sum_warp(uint64_t* st, int tile, int agg,
   return excl;
 }
 
-// ---- heavy rows: a row too wide for the ELL slab is taken by one CTA,
-// which sums its arcs' weights per distinct label in an open-addressing
-// table of T >= 2 x (its lanes) slots in global scratch (keys label + 1, 0
-// empty), then runs the tie chain over the table by CTA reductions. -----
+// ---- heavy rows (lp_move_heavy, bal_scores_heavy): a row too wide for
+// the ELL slab, its D slab lanes and then its overflow arcs, L lanes in
+// all. A row of at most WARP_LANES lanes (the warp class) is one warp's,
+// which sums its arcs' weights per distinct label in a table of its own
+// in shared memory (2 slots a distinct label at least, a power of two);
+// the other rows (hubs) are laid end to end in a hub-lane space whose
+// HUB_RANGE-lane ranges are one CTA each: a CTA adds its lanes' sums into
+// the row's open-addressing table in global scratch (2 slots a lane,
+// zeroed before the launch), and the row's last CTA to arrive (an atomic
+// ticket after a fence) walks it. kernels/heavy.py builds the hub plan
+// with the same two constants. Keys are label + 1, 0 empty. -------------
 
-constexpr int HEAVY = 256;      // threads of a heavy-row CTA
+constexpr int HEAVY_WARPS = 4;           // warps of a heavy-row CTA
+constexpr int HEAVY = HEAVY_WARPS * 32;  // its threads
+constexpr int WARP_LANES = 256;          // a warp-class row's lanes at most
+constexpr int WARP_SLOTS = 2 * WARP_LANES;   // its table's slots at most
+constexpr int HUB_RANGE = 1024;          // hub lanes a CTA takes
+constexpr int ROW_TILES = WARP_LANES >> 5;   // a warp's tiles of either
+static_assert(HUB_RANGE == HEAVY * ROW_TILES, "a range: 8 tiles a warp");
 
-// The slot of label l >= 0 in the table `key` of T slots, claimed if new.
-// T exceeds the labels the row holds, so a free slot is always found.
-__device__ __forceinline__ int claim_slot(int* key, int T, int l) {
-  unsigned s = ((uint32_t)l * 2654435761u) % (unsigned)T;
+constexpr int FEW_LABELS = 8;            // a tile's labels summed by redux
+
+// Adds one 32-lane tile of (label l, -1: none; weight x; c, b: minima
+// kept beside the sum) into a table: insert(label, sum, min c, min b) is
+// called once a label by the label's first lane when the tile holds at
+// most FEW_LABELS distinct labels (their sums taken by full-warp redux,
+// one label after the other), else once a lane by every lane with a
+// label. A redux over a group's own member mask serializes over the
+// tile's distinct masks: with 32 distinct labels (lp_move's clusters at
+// level 0), 32 of them, which made it the heavy rows' slowest step.
+template <class Insert>
+__device__ __forceinline__ void add_tile(int l, int x, int c, int b,
+                                         Insert insert) {
+  const int lane = threadIdx.x & 31;
+  const unsigned grp = __match_any_sync(FULL_MASK, l);
+  const unsigned leads =
+      __ballot_sync(FULL_MASK, l >= 0 && lane == __ffs(grp) - 1);
+  if (__popc(leads) > FEW_LABELS) {
+    if (l >= 0) insert(l, x, c, b);
+    return;
+  }
+  for (unsigned m = leads; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    const int lab = __shfl_sync(FULL_MASK, l, src);
+    const bool in = l == lab;
+    const int sum = (int)__reduce_add_sync(FULL_MASK, in ? (unsigned)x : 0u);
+    const int cmin = __reduce_min_sync(FULL_MASK, in ? c : I32_MAX);
+    const int bmin = __reduce_min_sync(FULL_MASK, in ? b : I32_MAX);
+    if (lane == src) insert(lab, sum, cmin, bmin);
+  }
+}
+
+__device__ __forceinline__ unsigned mix32(int l) {
+  unsigned h = (uint32_t)l * 2654435761u;
+  return h ^ (h >> 16);
+}
+
+// The slot of label l >= 0 in the table `key` of T slots (any T, in
+// global memory, atomics from many CTAs), claimed if new. T exceeds the
+// labels the row holds, so a free slot is always found. `stride`: ints
+// from one slot's key to the next.
+__device__ __forceinline__ int claim_slot(int* key, int T, int l,
+                                          int stride = 1) {
+  unsigned s = mix32(l) % (unsigned)T;
   for (;;) {
-    const int prev = atomicCAS(key + s, 0, l + 1);
+    const int prev = atomicCAS(key + (size_t)s * stride, 0, l + 1);
     if (prev == 0 || prev == l + 1) return (int)s;
     s = s + 1 == (unsigned)T ? 0u : s + 1;
   }
+}
+
+// The same in a warp's table of mask + 1 slots (a power of two) in
+// shared memory.
+__device__ __forceinline__ int claim_pow2(int* key, unsigned mask, int l) {
+  unsigned s = mix32(l) & mask;
+  for (;;) {
+    const int prev = atomicCAS(key + s, 0, l + 1);
+    if (prev == 0 || prev == l + 1) return (int)s;
+    s = (s + 1) & mask;
+  }
+}
+
+// Slots of a warp's table for at most n distinct labels: a power of two,
+// at least 2 n and 32 (one slot a lane to walk).
+__device__ __forceinline__ int warp_slots(int n) {
+  int T = 32;
+  while (T < 2 * n) T <<= 1;
+  return T;
+}
+
+// The hub rows' plan (kernels/heavy.py): hubs[2 k] is hub row k's heavy
+// index, hubs[2 k + 1] its first lane in the hub-lane space (k = n_hub:
+// H and the hub lanes in all); ranges[c] the hub row holding the first
+// lane of range c.
+struct HubPlan {
+  const int* hubs;
+  int n_hub;
+  const int* ranges;
+  int G;
+};
+
+// First index i in [0, n) with a[i] >= x (n if none), a ascending: by
+// the whole warp, 32 probes a step, so ~log32(n) dependent loads.
+__device__ int lower_bound_warp(const int* __restrict__ a, int n, int x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;                        // the answer lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int i = min(lo + (lane + 1) * step - 1, hi - 1);
+    const unsigned ge = __ballot_sync(FULL_MASK, __ldg(a + i) >= x);
+    if (ge) {
+      const int f = __ffs(ge) - 1;
+      hi = min(lo + (f + 1) * step - 1, hi - 1);
+      lo += f * step;
+    } else {
+      lo = hi;                               // the last probe is hi - 1
+    }
+  }
+  const int i = lo + lane;
+  const unsigned ge = __ballot_sync(FULL_MASK, i < hi && __ldg(a + i) >= x);
+  return ge ? lo + __ffs(ge) - 1 : hi;
+}
+
+// The CTAs that take hub row k: its ranges' count.
+__device__ __forceinline__ int hub_ctas(int off, int end) {
+  return (end - 1) / HUB_RANGE - off / HUB_RANGE + 1;
+}
+
+// After a CTA added its lanes of hub row k into the row's table: whether
+// it arrived last (every CTA of the row has then added its sums, visible
+// to this CTA's loads after the fence). All threads call it.
+__device__ __forceinline__ bool last_of_row(int* ticket, int k, int ctas,
+                                            int* s_flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *s_flag = atomicAdd(ticket + k, 1) == ctas - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  return *s_flag;
+}
+
+// The warp's tie chain over its lanes' best candidates (score bs, weight
+// key bc, hash bh, label bl): max score, then the smallest weight key,
+// hash, label, one redux each; every lane gets (score, weight, label).
+__device__ __forceinline__ void warp_best(int bs, int bc, int bh, int bl,
+                                          int& s, int& c, int& l) {
+  s = __reduce_max_sync(FULL_MASK, bs);
+  bool tie = bs == s;
+  c = __reduce_min_sync(FULL_MASK, tie ? bc : I32_MAX);
+  tie = tie && bc == c;
+  const int h = __reduce_min_sync(FULL_MASK, tie ? bh : I32_MAX);
+  tie = tie && bh == h;
+  l = __reduce_min_sync(FULL_MASK, tie ? bl : I32_MAX);
 }
 
 // Max (MAX) or min of x over the CTA (blockDim.x a multiple of 32, at most
@@ -282,6 +421,18 @@ __device__ int cta_reduce(int x, int* sh) {
   const int r = sh[32];
   __syncthreads();
   return r;
+}
+
+// warp_best over the CTA, four CTA reductions.
+__device__ __forceinline__ void cta_best(int bs, int bc, int bh, int bl,
+                                         int& s, int& c, int& l, int* sh) {
+  s = cta_reduce<true>(bs, sh);
+  bool tie = bs == s;
+  c = cta_reduce<false>(tie ? bc : I32_MAX, sh);
+  tie = tie && bc == c;
+  const int h = cta_reduce<false>(tie ? bh : I32_MAX, sh);
+  tie = tie && bh == h;
+  l = cta_reduce<false>(tie ? bl : I32_MAX, sh);
 }
 
 }  // namespace

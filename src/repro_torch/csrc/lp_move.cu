@@ -65,26 +65,43 @@
 // Heavy rows (lp_move_heavy). The slab's width is capped (kernels/lp_move/
 // ops.py::slab_width), so a hub keeps its first D arcs in the slab and the
 // rest in an overflow CSR (rows, ptr, and the arcs' label, weight and
-// cluster weight). One hub of rhg 2^20 has 30,127 arcs, whose (label,
-// weight) pairs outgrow a CTA's shared memory, and phase A's tile-against-
-// tile walk costs O(D^2 / 32) a row, so such rows take a path of their
-// own, launched before phase A: one CTA a heavy row clears the row's
-// open-addressing table in global scratch (2 slots a lane), adds every
-// arc's weight into its label's slot with int32 atomics (exact in any
-// order; a warp's lanes of one label add up first, by __match_any_sync,
-// so a label that fills the row costs one atomic a warp, not one a lane),
-// then walks the distinct labels: admission (either form: the distributed
-// form's budgets ride in the overflow beside the cluster weights, and a
-// label's budget is taken from its slot as its weight is), the
-// four-stage tie chain as four CTA reductions, own_conn from the own
-// label's slot; and writes tgt,
-// pmove, light and the d_in / d_out atomics as move_row does. Phase A
-// skips the rows the heavy CTAs flagged; phase B is unchanged. The tie
-// chain is a total order over distinct labels and connectivity an exact
-// int32 sum, so splitting a row cannot change its argmax. Bound: the
-// heavy rows' lanes, read once (12 bytes each, 16 in the distributed
-// form), plus the tables' traffic, which stays in L2. The stacked call
-// takes no overflow.
+// cluster weight). Phase A's tile-against-tile walk costs O(D^2 / 32) a
+// row, so such rows take a path of their own, one launch before phase A,
+// in two width classes (common.cuh; the plan, kernels/heavy.py, is built
+// with the ELL):
+//   * a row of at most WARP_LANES = 256 lanes (nearly all heavy rows of
+//     the hub graphs; chip_smoke.py phase 9 prints each class's rows and
+//     lanes) is one warp's: it loads all its (at most 8) tiles at once,
+//     then sums each distinct label's weight (and takes its smallest
+//     cluster weight and budget) in a table of its own in shared memory,
+//     2 slots a lane rounded up to a power of two (8 KB at most: 4 warps
+//     a CTA, 32 KB), a tile at a time (common.cuh::add_tile: a tile of
+//     few labels by one full-warp redux a label, else an atomic a lane);
+//     then the slots, one a lane, and the four-stage tie chain as four
+//     warp redux. No global table and no __syncthreads;
+//   * the longer rows (hubs; one of rhg 2^20 has 30,127 arcs) lie end to
+//     end in a hub-lane space cut into HUB_RANGE = 1024-lane ranges, one
+//     CTA each (8 tiles a warp, the work of a warp-class row), whatever
+//     rows a range crosses: its lanes' sums go into the row's
+//     open-addressing table in global scratch (2 slots a lane: key,
+//     conn, and the minima as the maxima of I32_MAX - x, so that the
+//     memset's zeros stand for "none"); a second CTA a range walks the
+//     table slots of the range's lanes (16 a thread, all in flight) once
+//     the row's count of added ranges is full, runs the tie chain over
+//     them as four CTA reductions, and the row's last walker (a ticket
+//     after a fence) combines the parts' winners. Walking CTAs take their
+//     role from a ticket after every adding one, so a wait is only ever
+//     for CTAs already running; one walker a row would walk the 30,127-arc
+//     hub's 60,254 slots alone.
+// The hub ranges come first in the grid, so the longest work starts
+// first. The call's one memset clears the tables, tickets and the heavy
+// flags with the rest. Either class writes tgt, pmove, light and the d_in
+// / d_out atomics as move_row does, and flags the row for phase A to skip;
+// phase B is unchanged. The tie chain is a total order over distinct
+// labels and connectivity an exact int32 sum, so any split of a row's
+// lanes gives its whole row's argmax. Bound: the heavy rows' lanes, read
+// once (12 bytes each, 16 in the distributed form), and O(1) operations a
+// lane. The stacked call takes no overflow.
 #include "common.cuh"
 
 namespace {
@@ -121,6 +138,31 @@ __device__ __forceinline__ bool better(int s, int c, int h, int l, int bs,
 
 __device__ __forceinline__ void check_label(int x, int num_labels) {
   if (x < 0 || x >= num_labels) __trap();
+}
+
+// Row r's phase-A outputs from the tie chain's winner (score s_best,
+// weight key c_best, label l_best) and its own connectivity: whether it
+// moves, its target and light key, and a mover's weight into the
+// label-indexed d_in / d_out tables.
+__device__ __forceinline__ void move_out(int r, int o, int v, int s_best,
+                                         int c_best, int l_best,
+                                         int own_conn, int num_labels,
+                                         int* __restrict__ tgt,
+                                         int* __restrict__ pmove,
+                                         int* __restrict__ light,
+                                         int* __restrict__ din,
+                                         int* __restrict__ dout) {
+  const bool mv = s_best > own_conn && l_best != o && l_best < I32_MAX &&
+                  s_best > 0;
+  tgt[r] = mv ? l_best : o;
+  pmove[r] = mv ? 1 : 0;
+  light[r] = c_best;
+  if (mv) {
+    check_label(l_best, num_labels);
+    check_label(o, num_labels);
+    atomicAdd(&din[l_best], v);
+    atomicAdd(&dout[o], v);
+  }
 }
 
 // One row of phase A for one warp. (l0, w0, c0, b0) are this lane's
@@ -181,28 +223,13 @@ __device__ __forceinline__ void move_row(
     }
   }
   // the tie chain over the warp, one key at a time
-  const int s_best = __reduce_max_sync(FULL_MASK, bs);
-  bool is_best = bs == s_best;
-  const int c_best = __reduce_min_sync(FULL_MASK, is_best ? bc : I32_MAX);
-  is_best = is_best && bc == c_best;
-  const int h_best = __reduce_min_sync(FULL_MASK, is_best ? bh : I32_MAX);
-  is_best = is_best && bh == h_best;
-  const int l_best = __reduce_min_sync(FULL_MASK, is_best ? bl : I32_MAX);
+  int s_best, c_best, l_best;
+  warp_best(bs, bc, bh, bl, s_best, c_best, l_best);
   const unsigned seen = __ballot_sync(FULL_MASK, own_seen);
   own_conn = seen ? __shfl_sync(FULL_MASK, own_conn, __ffs(seen) - 1) : 0;
-  if (lane == 0) {
-    const bool mv = s_best > own_conn && l_best != o && l_best < I32_MAX &&
-                    s_best > 0;
-    tgt[r] = mv ? l_best : o;
-    pmove[r] = mv ? 1 : 0;
-    light[r] = c_best;
-    if (mv) {
-      check_label(l_best, num_labels);
-      check_label(o, num_labels);
-      atomicAdd(&din[l_best], v);
-      atomicAdd(&dout[o], v);
-    }
-  }
+  if (lane == 0)
+    move_out(r, o, v, s_best, c_best, l_best, own_conn, num_labels, tgt,
+             pmove, light, din, dout);
 }
 
 // Phase A: one warp per row, ROWS rows per warp, whose first 32 lanes are
@@ -249,114 +276,279 @@ lp_move_rows(const int* __restrict__ nlab, const int* __restrict__ nw,
                w[k], c[k], b[k], o[k], v[k], tgt, pmove, light, din, dout);
 }
 
-// The heavy rows, one CTA each (solo calls only): hrow[h] is the row,
-// hptr[h] .. hptr[h + 1] its overflow arcs (olab / ow / ocw, and obud in
-// the distributed form, nbud != nullptr), after its D slab lanes. tab
-// holds 8 (H D + hptr[H]) ints: row h's table of T = 2 (D + its overflow)
-// slots (key, conn, cw, bud) at 8 (h D + hptr[h]).
-__global__ void __launch_bounds__(HEAVY)
-lp_move_heavy(const int* __restrict__ nlab, const int* __restrict__ nw,
-              const int* __restrict__ ncw, const int* __restrict__ nbud,
-              const int* __restrict__ own,
-              const int* __restrict__ vw, int R, int D, int W, uint32_t salt,
-              int num_labels, const int* __restrict__ hrow,
-              const int* __restrict__ hptr, const int* __restrict__ olab,
-              const int* __restrict__ ow, const int* __restrict__ ocw,
-              const int* __restrict__ obud,
-              int* __restrict__ tab, int* __restrict__ heavy,
-              int* __restrict__ tgt, int* __restrict__ pmove,
-              int* __restrict__ light, int* __restrict__ din,
-              int* __restrict__ dout) {
-  __shared__ int sh[33];
-  __shared__ int s_oc;
+// ---- heavy rows (solo calls only) ---------------------------------------
+
+// One lane of a heavy row: label (-1: none), weight, cluster weight and
+// budget.
+struct Arc {
+  int l, x, c, b;
+};
+
+// Lane p of heavy row r (its slab row at `row`, its overflow arcs from
+// a0), or none at p >= lim. The four loads do not wait for one another
+// (a slab lane's weights are there whether the lane is valid or not).
+__device__ __forceinline__ Arc heavy_arc(
+    const int* __restrict__ nlab, const int* __restrict__ nw,
+    const int* __restrict__ ncw, const int* __restrict__ nbud,
+    const int* __restrict__ olab, const int* __restrict__ ow,
+    const int* __restrict__ ocw, const int* __restrict__ obud, size_t row,
+    int D, int a0, int p, int lim) {
+  Arc a{-1, 0, 0, 0};
+  if (p >= lim) return a;
+  const bool slab = p < D;
+  const size_t i = slab ? row + p : (size_t)a0 + (p - D);
+  a.l = (slab ? nlab : olab)[i];
+  a.x = (slab ? nw : ow)[i];
+  a.c = (slab ? ncw : ocw)[i];
+  if (nbud) a.b = (slab ? nbud : obud)[i];
+  return a;
+}
+
+// A distinct label l of a heavy row with its connectivity cn, smallest
+// cluster weight cj and budget bj: admission (either form), the lane's
+// running best, own_conn once l is the own label.
+__device__ __forceinline__ void heavy_candidate(
+    int l, int cn, int cj, int bj, int o, int v, int W, bool dist,
+    uint32_t salt, int& bs, int& bc, int& bh, int& bl, int& oc,
+    bool& seen) {
+  const bool stay = l == o;
+  const bool fits = dist ? cj <= wsub(bj, v) : wadd(cj, v) <= W;
+  const int score = (stay || fits) ? cn : -1;
+  const int hj = h32(l, salt);
+  if (better(score, cj, hj, l, bs, bc, bh, bl)) {
+    bs = score; bc = cj; bh = hj; bl = l;
+  }
+  if (stay) {
+    oc = cn;
+    seen = true;
+  }
+}
+
+// The global tables keep a minimum as the maximum of this image (the
+// zeroed slot stands for I32_MAX): I32_MAX - x, taken modulo 2^32, falls
+// as x rises over the whole int32 range.
+__device__ __forceinline__ unsigned min_key(int x) {
+  return (uint32_t)I32_MAX - (uint32_t)x;
+}
+__device__ __forceinline__ int min_of(unsigned k) {
+  return (int)((uint32_t)I32_MAX - k);
+}
+
+struct HeavyArgs {
+  const int *nlab, *nw, *ncw, *nbud, *own, *vw;
+  int R, D, W;
+  uint32_t salt;
+  int num_labels, H;
+  const int *hrow, *hptr, *olab, *ow, *ocw, *obud;
+  HubPlan plan;
+  int4* tab;     // hub tables: (key, conn, min_key(cw), min_key(bud))
+  int* ticket;   // a hub row's ranges added, then walked; the role ticket
+  int4* part;    // a walking range's partial winner of each row it crosses
+  int *heavy, *tgt, *pmove, *light, *din, *dout;
+};
+
+// Warp-class row h by one warp, in its table `s` (4 WARP_SLOTS ints of
+// shared memory): a 32-lane tile at a time, its lanes of one label
+// summed by __match_any_sync and one redux each, the group's first lane
+// adding them into the label's slot; then the slots, one a lane, and the
+// tie chain as four redux.
+__device__ void heavy_warp_row(const HeavyArgs& a, int h, int* s) {
   const int lane = threadIdx.x & 31;
-  const int h = blockIdx.x, r = hrow[h];
-  if (r < 0 || r >= R) __trap();
-  const int a0 = hptr[h], lanes = D + (hptr[h + 1] - a0), T = 2 * lanes;
-  int* key = tab + (size_t)8 * ((size_t)h * D + a0);
+  const int r = a.hrow[h];
+  if (r < 0 || r >= a.R) __trap();
+  const int a0 = a.hptr[h], L = a.D + (a.hptr[h + 1] - a0);
+  if (L > WARP_LANES) return;              // a hub row: the hub CTAs'
+  const int T = warp_slots(L);
+  int* key = s;
   int* conn = key + T;
   int* cw = conn + T;
   int* bd = cw + T;
-  for (int i = threadIdx.x; i < T; i += HEAVY) {
+  for (int i = lane; i < T; i += 32) {
     key[i] = 0;
     conn[i] = 0;
     cw[i] = I32_MAX;
     bd[i] = I32_MAX;
   }
-  if (threadIdx.x == 0) {
-    heavy[r] = 1;
-    s_oc = 0;
+  __syncwarp();
+  const int o = a.own[r], v = a.vw[r];
+  const size_t row = (size_t)r * a.D;
+  Arc x[ROW_TILES];                 // every tile's loads before any wait
+#pragma unroll
+  for (int q = 0; q < ROW_TILES; ++q)
+    x[q] = heavy_arc(a.nlab, a.nw, a.ncw, a.nbud, a.olab, a.ow, a.ocw,
+                     a.obud, row, a.D, a0, 32 * q + lane, L);
+  const bool dist = a.nbud != nullptr;
+  auto insert = [&](int l, int sum, int cmin, int bmin) {
+    const int sl = claim_pow2(key, T - 1, l);
+    atomicAdd(conn + sl, sum);
+    atomicMin(cw + sl, cmin);
+    if (dist) atomicMin(bd + sl, bmin);
+  };
+#pragma unroll
+  for (int q = 0; q < ROW_TILES; ++q) {
+    if (32 * q >= L) break;
+    add_tile(x[q].l, x[q].x, x[q].c, x[q].b, insert);
   }
-  __syncthreads();
-  const size_t row = (size_t)r * D;
-  for (int j0 = 0; j0 < lanes; j0 += HEAVY) {   // uniform: whole warps
-    const int j = j0 + threadIdx.x;
-    int l = -1, x = 0, c = 0, b = 0;
-    if (j < D) {
-      l = nlab[row + j];
-      if (l >= 0) {
-        x = nw[row + j];
-        c = ncw[row + j];
-        if (nbud) b = nbud[row + j];
+  __syncwarp();
+  int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX, oc = 0;
+  bool seen = false;
+  for (int i = lane; i < T; i += 32)
+    if (key[i])
+      heavy_candidate(key[i] - 1, conn[i], cw[i], bd[i], o, v, a.W,
+                      a.nbud != nullptr, a.salt, bs, bc, bh, bl, oc, seen);
+  int s_best, c_best, l_best;
+  warp_best(bs, bc, bh, bl, s_best, c_best, l_best);
+  const unsigned sn = __ballot_sync(FULL_MASK, seen);
+  oc = sn ? __shfl_sync(FULL_MASK, oc, __ffs(sn) - 1) : 0;
+  if (lane == 0) {
+    a.heavy[r] = 1;
+    move_out(r, o, v, s_best, c_best, l_best, oc, a.num_labels, a.tgt,
+             a.pmove, a.light, a.din, a.dout);
+  }
+}
+
+constexpr int WALK = 16;   // table slots a thread loads at once
+// hub rows a range crosses at most: each has more than WARP_LANES lanes
+constexpr int PMAX = 5;
+static_assert(PMAX >= HUB_RANGE / (WARP_LANES + 1) + 2, "PMAX");
+
+// Hub range c, adding: for each hub row the range crosses, its lanes there
+// summed per label as a warp-class row sums them, into the row's table of
+// 2 L slots at 2 off; then the row's count of added ranges, after a fence.
+__device__ void hub_add(const HeavyArgs& a, int c) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const HubPlan& P = a.plan;
+  const int x0 = c * HUB_RANGE;
+  const int x1 = min(x0 + HUB_RANGE, P.hubs[2 * P.n_hub + 1]);
+  const bool dist = a.nbud != nullptr;
+  for (int k = P.ranges[c]; k < P.n_hub; ++k) {   // uniform over the CTA
+    const int off = P.hubs[2 * k + 1], end = P.hubs[2 * k + 3];
+    if (off >= x1) break;
+    const int h = P.hubs[2 * k], r = a.hrow[h];
+    if (r < 0 || r >= a.R) __trap();
+    const int a0 = a.hptr[h], L = end - off, T = 2 * L;
+    if (L != a.D + (a.hptr[h + 1] - a0)) __trap();   // not this plan's
+    int* tk = reinterpret_cast<int*>(a.tab + 2 * (size_t)off);
+    const int p0 = max(x0, off) - off + warp * 32, p1 = min(x1, end) - off;
+    const size_t row = (size_t)r * a.D;
+    Arc x[ROW_TILES];               // a warp's tiles: at most 8 a range
+#pragma unroll
+    for (int q = 0; q < ROW_TILES; ++q)
+      x[q] = heavy_arc(a.nlab, a.nw, a.ncw, a.nbud, a.olab, a.ow, a.ocw,
+                       a.obud, row, a.D, a0, p0 + HEAVY * q + lane, p1);
+    auto insert = [&](int l, int sum, int cmin, int bmin) {
+      const int sl = claim_slot(tk, T, l, 4);
+      atomicAdd(tk + 4 * sl + 1, sum);
+      atomicMax(reinterpret_cast<unsigned*>(tk + 4 * sl + 2), min_key(cmin));
+      if (dist)
+        atomicMax(reinterpret_cast<unsigned*>(tk + 4 * sl + 3),
+                  min_key(bmin));
+    };
+#pragma unroll
+    for (int q = 0; q < ROW_TILES; ++q) {
+      if (p0 + HEAVY * q >= p1) break;
+      add_tile(x[q].l, x[q].x, x[q].c, x[q].b, insert);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      a.heavy[r] = 1;
+      __threadfence();
+      atomicAdd(a.ticket + k, 1);
+    }
+  }
+}
+
+// Hub range c, walking: for each hub row the range crosses, once every
+// range of the row has added (they took earlier tickets, so they run),
+// the table slots of the range's lanes (2 a lane: 16 a thread, one load
+// each in flight) and the tie chain over the CTA give a partial winner;
+// the row's last walker combines the partials (the tie chain is a total
+// order, so the best of the parts' best is the row's) and writes the row.
+__device__ void hub_walk(const HeavyArgs& a, int c, int* sh, int* s_flag,
+                         int* s_oc) {
+  const HubPlan& P = a.plan;
+  const int x0 = c * HUB_RANGE;
+  const int x1 = min(x0 + HUB_RANGE, P.hubs[2 * P.n_hub + 1]);
+  const int first = P.ranges[c];
+  for (int k = first; k < P.n_hub; ++k) {         // uniform over the CTA
+    const int off = P.hubs[2 * k + 1], end = P.hubs[2 * k + 3];
+    if (off >= x1) break;
+    const int r = a.hrow[P.hubs[2 * k]];
+    const int ctas = hub_ctas(off, end);
+    if (threadIdx.x == 0) {
+      while (*(volatile int*)(a.ticket + k) < ctas) {
       }
-    } else if (j < lanes) {
-      const int a = a0 + (j - D);
-      l = olab[a];
-      x = ow[a];
-      c = ocw[a];
-      if (nbud) b = obud[a];
+      __threadfence();
+      *s_oc = 0;
     }
-    const unsigned grp = __match_any_sync(FULL_MASK, l);
-    if (l >= 0) {
-      const int sum = (int)__reduce_add_sync(grp, (unsigned)x);
-      const int cmin = __reduce_min_sync(grp, c);
-      const int bmin = __reduce_min_sync(grp, b);
-      if (lane == __ffs(grp) - 1) {
-        const int slot = claim_slot(key, T, l);
-        atomicAdd(conn + slot, sum);
-        atomicMin(cw + slot, cmin);
-        if (nbud) atomicMin(bd + slot, bmin);
+    __syncthreads();
+    const int o = a.own[r], v = a.vw[r];
+    const int4* t = a.tab + 2 * (size_t)off;
+    const int i0 = 2 * (max(x0, off) - off), i1 = 2 * (min(x1, end) - off);
+    int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX, oc = 0;
+    bool seen = false;
+    int4 e[WALK];
+#pragma unroll
+    for (int q = 0; q < WALK; ++q) {
+      const int i = i0 + q * HEAVY + threadIdx.x;
+      e[q] = i < i1 ? __ldcg(t + i) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int q = 0; q < WALK; ++q)
+      if (e[q].x)
+        heavy_candidate(e[q].x - 1, e[q].y, min_of((unsigned)e[q].z),
+                        min_of((unsigned)e[q].w), o, v, a.W,
+                        a.nbud != nullptr, a.salt, bs, bc, bh, bl, oc, seen);
+    if (seen) *s_oc = oc;                 // one slot holds label o
+    int s_best, c_best, l_best;
+    cta_best(bs, bc, bh, bl, s_best, c_best, l_best, sh);
+    // the part: its winner (none: label I32_MAX) and own_conn if label o
+    // lies in it (0 otherwise, so the parts' sum is the row's own_conn)
+    if (threadIdx.x == 0)
+      a.part[(size_t)c * PMAX + (k - first)] =
+          make_int4(s_best, c_best, l_best, *s_oc);
+    if (!last_of_row(a.ticket + P.n_hub, k, ctas, s_flag)) continue;
+    if (threadIdx.x == 0) {              // the parts of row k, in order
+      int sb = -1, cb = I32_MAX, hb = I32_MAX, lb = I32_MAX, own_conn = 0;
+      for (int d = off / HUB_RANGE; d <= (end - 1) / HUB_RANGE; ++d) {
+        const int4 w = __ldcg(a.part + (size_t)d * PMAX + (k - P.ranges[d]));
+        own_conn = wadd(own_conn, w.w);
+        if (w.z != I32_MAX && better(w.x, w.y, h32(w.z, a.salt), w.z, sb, cb,
+                                     hb, lb)) {
+          sb = w.x; cb = w.y; hb = h32(w.z, a.salt); lb = w.z;
+        }
       }
+      move_out(r, o, v, sb, cb, lb, own_conn, a.num_labels, a.tgt, a.pmove,
+               a.light, a.din, a.dout);
     }
+    __syncthreads();
   }
-  __syncthreads();
-  const int o = own[r], v = vw[r];
-  int bs = -1, bc = I32_MAX, bh = I32_MAX, bl = I32_MAX;
-  for (int i = threadIdx.x; i < T; i += HEAVY) {
-    const int k = key[i];
-    if (k == 0) continue;
-    const int l = k - 1, cn = conn[i], cj = cw[i];
-    const bool stay = l == o;
-    const bool fits = nbud ? cj <= wsub(bd[i], v) : wadd(cj, v) <= W;
-    const int score = (stay || fits) ? cn : -1;
-    const int hj = h32(l, salt);
-    if (better(score, cj, hj, l, bs, bc, bh, bl)) {
-      bs = score; bc = cj; bh = hj; bl = l;
-    }
-    if (stay) s_oc = cn;   // one slot holds label o
+}
+
+// The heavy rows, before phase A: CTAs 0 .. 2 G - 1 the hub ranges (the
+// longest work first), each taking its role from a ticket: the G adding
+// CTAs first, then the G walking ones, which may wait only for CTAs
+// already running; then one warp a heavy row (hub rows' warps leave at
+// once). Flags each heavy row for phase A to skip.
+__global__ void __launch_bounds__(HEAVY)
+lp_move_heavy(const __grid_constant__ HeavyArgs a) {
+  __shared__ int s_tab[HEAVY_WARPS][4 * WARP_SLOTS];
+  __shared__ int sh[33];
+  __shared__ int s_flag, s_oc, s_role;
+  const int G = a.plan.G;
+  if ((int)blockIdx.x < 2 * G) {
+    if (threadIdx.x == 0)
+      s_role = atomicAdd(a.ticket + 2 * a.plan.n_hub, 1);
+    __syncthreads();
+    if (s_role < G)
+      hub_add(a, s_role);
+    else
+      hub_walk(a, s_role - G, sh, &s_flag, &s_oc);
+    return;
   }
-  // the tie chain over the CTA, one key at a time
-  const int s_best = cta_reduce<true>(bs, sh);
-  bool is_best = bs == s_best;
-  const int c_best = cta_reduce<false>(is_best ? bc : I32_MAX, sh);
-  is_best = is_best && bc == c_best;
-  const int h_best = cta_reduce<false>(is_best ? bh : I32_MAX, sh);
-  is_best = is_best && bh == h_best;
-  const int l_best = cta_reduce<false>(is_best ? bl : I32_MAX, sh);
-  if (threadIdx.x == 0) {
-    const int own_conn = s_oc;
-    const bool mv = s_best > own_conn && l_best != o && l_best < I32_MAX &&
-                    s_best > 0;
-    tgt[r] = mv ? l_best : o;
-    pmove[r] = mv ? 1 : 0;
-    light[r] = c_best;
-    if (mv) {
-      check_label(l_best, num_labels);
-      check_label(o, num_labels);
-      atomicAdd(&din[l_best], v);
-      atomicAdd(&dout[o], v);
-    }
-  }
+  const int warp = threadIdx.x >> 5;
+  const int h = ((int)blockIdx.x - 2 * G) * HEAVY_WARPS + warp;
+  if (h < a.H) heavy_warp_row(a, h, s_tab[warp]);
 }
 
 // ---- phase B -----------------------------------------------------------
@@ -496,23 +688,27 @@ lp_move_sort_revert(uint64_t* k0, int* r0, uint64_t* k1, int* r1,
 
 // Scratch layout, 256-byte aligned pieces, each holding S requests' parts
 // one after the other. Everything from din on is cleared by one memset per
-// call.
-// The heavy rows' tables (8 ints a lane of theirs, cleared by their CTAs)
-// and flags (one a row, zeroed) are there only when H > 0.
+// call. The heavy rows' flags (one a row) are there only when H > 0, the
+// hub rows' tables (2 HUB_RANGE slots of 4 ints a hub range), tickets (two
+// a hub row, and the hub CTAs' role ticket) and the walking ranges'
+// partial winners (PMAX of 4 ints a hub range, not cleared) only when
+// there are hub rows.
 struct Scratch {
   int *pmove, *light, *newcw;
   uint64_t* key[2];
   int* row[2];
-  int* tab;
   int *din, *dout, *movedin, *ctr, *hist;
   uint64_t* cstat;
+  int4* part;
   int* heavy;
+  int4* tab;
+  int* ticket;
   char* zero;
   size_t zero_bytes;
 };
 
-size_t carve(char* base, int S, int R, int num_labels, int H, int64_t lanes,
-             Scratch* s) {
+size_t carve(char* base, int S, int R, int num_labels, int H, int G,
+             int n_hub, Scratch* s) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
@@ -528,7 +724,7 @@ size_t carve(char* base, int S, int R, int num_labels, int H, int64_t lanes,
     s->key[i] = (uint64_t*)take(8 * r);
     s->row[i] = (int*)take(4 * r);
   }
-  s->tab = H ? (int*)take(32 * (size_t)lanes) : nullptr;
+  s->part = G ? (int4*)take(16 * (size_t)PMAX * G) : nullptr;
   const size_t zero_from = off;
   s->din = (int*)take(4 * nl);
   s->dout = (int*)take(4 * nl);
@@ -537,6 +733,8 @@ size_t carve(char* base, int S, int R, int num_labels, int H, int64_t lanes,
   s->hist = (int*)take(4 * (size_t)S * MAX_PASSES * RADIX);
   s->cstat = (uint64_t*)take(8 * tiles);
   s->heavy = H ? (int*)take(4 * r) : nullptr;
+  s->tab = G ? (int4*)take(32 * (size_t)HUB_RANGE * G) : nullptr;
+  s->ticket = n_hub ? (int*)take(4 * (2 * (size_t)n_hub + 1)) : nullptr;
   s->zero = base ? base + zero_from : nullptr;
   s->zero_bytes = off - zero_from;
   return off;
@@ -556,10 +754,12 @@ bool bad_shape(int S, int R, int D, int num_labels) {
 }
 
 // The heavy rows of a solo call: H of them, their overflow (hrow, hptr,
-// olab, ow, ocw, and obud in the distributed form) of M arcs.
+// olab, ow, ocw, and obud in the distributed form) of M arcs, and the
+// hub plan.
 struct Heavy {
   int H, M;
   const int *hrow, *hptr, *olab, *ow, *ocw, *obud;
+  HubPlan plan;
 };
 
 int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
@@ -568,17 +768,20 @@ int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
            void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Scratch s;
-  carve((char*)scratch, S, R, num_labels, hv.H,
-        (int64_t)hv.H * D + hv.M, &s);
+  carve((char*)scratch, S, R, num_labels, hv.H, hv.plan.G, hv.plan.n_hub,
+        &s);
   const int passes = key_passes(num_labels);
   const int tiles = (R + TILE - 1) / TILE;
   cudaError_t err = cudaMemsetAsync(s.zero, 0, s.zero_bytes, st);
   if (err != cudaSuccess) return (int)err;
   if (hv.H) {
-    lp_move_heavy<<<hv.H, HEAVY, 0, st>>>(
-        nlab, nw, ncw, nbud, own, vw, R, D, q.W1, q.salt1, num_labels,
-        hv.hrow, hv.hptr, hv.olab, hv.ow, hv.ocw, hv.obud, s.tab, s.heavy,
-        tgt, s.pmove, s.light, s.din, s.dout);
+    const HeavyArgs a{nlab, nw, ncw, nbud, own, vw, R, D, q.W1, q.salt1,
+                      num_labels, hv.H, hv.hrow, hv.hptr, hv.olab, hv.ow,
+                      hv.ocw, hv.obud, hv.plan, s.tab, s.ticket, s.part,
+                      s.heavy, tgt, s.pmove, s.light, s.din, s.dout};
+    const unsigned grid = 2 * (unsigned)hv.plan.G +
+                          (unsigned)((hv.H + HEAVY_WARPS - 1) / HEAVY_WARPS);
+    lp_move_heavy<<<grid, HEAVY, 0, st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   lp_move_rows<<<dim3((R + WARPS * ROWS - 1) / (WARPS * ROWS), S),
@@ -599,15 +802,15 @@ int launch(const int* nlab, const int* nw, const int* ncw, const int* nbud,
 }  // namespace
 
 // Bytes of scratch a call needs for S requests (1: lp_move_chunk) of R rows
-// and num_labels labels, H of them heavy with `lanes` slab and overflow
-// lanes in all (H D + M; 0 without heavy rows).
+// and num_labels labels, H of them heavy, n_hub of those hub rows over G
+// hub ranges (0 without heavy rows).
 extern "C" int lp_move_scratch_bytes(int S, int R, int num_labels, int H,
-                                     int lanes, int64_t* bytes) {
-  if (bad_shape(S, R, 1, num_labels) || H < 0 || lanes < 0 ||
-      (H && S != 1))
+                                     int G, int n_hub, int64_t* bytes) {
+  if (bad_shape(S, R, 1, num_labels) || H < 0 || G < 0 || n_hub < 0 ||
+      n_hub > H || ((G || n_hub) && !H) || (H && S != 1))
     return (int)cudaErrorInvalidValue;
   Scratch s;
-  *bytes = (int64_t)carve(nullptr, S, R, num_labels, H, lanes, &s);
+  *bytes = (int64_t)carve(nullptr, S, R, num_labels, H, G, n_hub, &s);
   return 0;
 }
 
@@ -617,25 +820,30 @@ extern "C" int lp_move_scratch_bytes(int S, int R, int num_labels, int H,
 // in [0, R); each of more than D lanes, its first D in the slab) have
 // their further arcs at hptr[h] .. hptr[h + 1] of olab / ow / ocw, and
 // obud in the distributed form (M in all; the lanes of one label carry
-// one cluster weight and one budget); H == 0 needs none of them. scratch
-// holds
-// lp_move_scratch_bytes(1, R, num_labels, H, H D + M) bytes, 256-byte
-// aligned, in any state; moved and tgt hold R ints each.
+// one cluster weight and one budget), and their hub plan hubs ((n_hub +
+// 1) x 2) / ranges (G) as kernels/heavy.py::heavy_plan builds it; H == 0
+// needs none of them. scratch holds lp_move_scratch_bytes(1, R,
+// num_labels, H, G, n_hub) bytes, 256-byte aligned, in any state; moved
+// and tgt hold R ints each.
 extern "C" int lp_move_chunk(const int* nlab, const int* nw, const int* ncw,
                              const int* nbud, const int* own, const int* vw,
                              int R, int D, int W, int v0, uint32_t salt,
                              int num_labels, int H, const int* hrow,
-                             const int* hptr, const int* olab, const int* ow,
-                             const int* ocw, const int* obud, int M,
-                             int* moved, int* tgt, void* scratch,
+                             const int* hptr, const int* hubs, int n_hub,
+                             const int* ranges, int G, const int* olab,
+                             const int* ow, const int* ocw, const int* obud,
+                             int M, int* moved, int* tgt, void* scratch,
                              void* stream) {
-  if (bad_shape(1, R, D, num_labels) || H < 0 || M < 0 ||
-      (H && (!hrow || !hptr ||
+  if (bad_shape(1, R, D, num_labels) || H < 0 || M < 0 || n_hub < 0 ||
+      G < 0 || n_hub > H ||
+      (H && (!hrow || !hptr || !hubs || (G && !ranges) ||
              (M && (!olab || !ow || !ocw || (nbud && !obud))))) ||
-      2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31))
+      2 * ((int64_t)H * D + M) >= ((int64_t)1 << 31) ||
+      (int64_t)G * HUB_RANGE >= ((int64_t)1 << 30))
     return (int)cudaErrorInvalidValue;
   const ReqArgs q{nullptr, nullptr, nullptr, W, v0, salt};
-  const Heavy hv{H, M, hrow, hptr, olab, ow, ocw, obud};
+  const Heavy hv{H, M, hrow, hptr, olab, ow, ocw, obud,
+                 HubPlan{hubs, n_hub, ranges, G}};
   return launch(nlab, nw, ncw, nbud, own, vw, 1, R, D, q, num_labels, hv,
                 moved, tgt, scratch, stream);
 }
@@ -656,7 +864,7 @@ extern "C" int lp_move_chunk_stacked(const int* nlab, const int* nw,
     return (int)cudaErrorInvalidValue;
   const ReqArgs q{W, v0, salt, 0, 0, 0u};
   const Heavy none{0, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                   nullptr};
+                   nullptr, HubPlan{nullptr, 0, nullptr, 0}};
   return launch(nlab, nw, ncw, nbud, own, vw, S, R, D, q, num_labels, none,
                 moved, tgt, scratch, stream);
 }

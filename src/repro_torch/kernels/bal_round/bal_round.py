@@ -6,7 +6,8 @@ bal_scores`` and ``::greedy_pick``; ``bal_scores`` also does the gathers
 that fed the TPU kernel its pre-gathered slabs, reading the ELL ids and the
 block tables itself. A CPU tensor runs the plain version (``ref``); a CUDA
 tensor launches the kernel or raises. Heavy rows (arcs beyond a capped
-slab, ``overflow``) are then rescored by the kernel's heavy-row path,
+slab, ``overflow``) are then rescored by the kernel's heavy-row path
+(a warp a row, hub rows split over CTAs by their plan, ``heavy.py``),
 counted apart as ``bal_scores_heavy``. The distributed balancer's calls
 (``dist=True``: one PE's label table) count as ``bal_scores_dist`` and
 ``bal_scores_heavy_dist``.
@@ -16,12 +17,14 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..heavy import HUB_RANGE
 from .ref import NEG_INF, bal_scores_ell_ref, greedy_pick_ref
 
 _SIG = {"bal_scores": [_build.P] * 8 + [_build.I] * 4 + [_build.U]
-        + [_build.P] * 3,
+        + [_build.P] * 3 + [_build.I, _build.P, _build.I, _build.P],
         "bal_scores_heavy": [_build.P] * 8 + [_build.I] * 4 + [_build.U]
-        + [_build.I] + [_build.P] * 4 + [_build.I] + [_build.P] * 4,
+        + [_build.I] + [_build.P] * 3 + [_build.I, _build.P, _build.I]
+        + [_build.P] * 2 + [_build.I] + [_build.P] * 4,
         "greedy_pick": [_build.P] * 6 + [_build.I] * 2 + [_build.P] * 3,
         "smem_chase_cycles": [_build.I, _build.P, _build.P]}
 
@@ -43,8 +46,9 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
     int32; the contract of ``ref.bal_scores_ell_ref``. ``ell_idx`` /
     ``ell_w`` (R, D) int32 (-1 / 0 padding), ``labels`` / ``vw`` (R,),
     the block tables (K,) int32; ``parent`` selects the restricted form;
-    ``overflow`` ``(rows, ptr, idx, w)`` int32 the heavy rows' arcs beyond
-    the slab. ``dist`` names the distributed balancer's call (its launch
+    ``overflow`` ``(rows, ptr, idx, w, hubs, ranges)`` int32 the heavy
+    rows' arcs beyond the slab and their plan (``lp_move.ops.Overflow``).
+    ``dist`` names the distributed balancer's call (its launch
     counter) and changes nothing else."""
     if ell_idx.device.type == "cpu":
         return bal_scores_ell_ref(ell_idx, ell_w, labels, vw, block_w, l_max,
@@ -67,15 +71,26 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
     for name, t in tables:
         req(f"bal_scores {name}", t, torch.int32, (K,), dev)
     check_launch(R, D, K)
-    H = 0
+    H, rows, scratch, words = 0, None, None, 0
     if overflow is not None and overflow[0].shape[0]:
-        H, M = overflow[0].shape[0], overflow[2].shape[0]
-        req("bal_scores overflow rows", overflow[0], torch.int32, (H,), dev)
-        req("bal_scores overflow ptr", overflow[1], torch.int32, (H + 1,),
+        if len(overflow) != 6:
+            raise ValueError("bal_scores: the overflow lacks its heavy-row "
+                             "plan (lp_move.ops.Overflow: rows, ptr, idx, "
+                             "w, hubs, ranges)")
+        rows, ptr, o_idx, o_w, hubs, ranges = overflow
+        H, M = rows.shape[0], o_idx.shape[0]
+        n_hub, G = hubs.shape[0] - 1, ranges.shape[0]
+        req("bal_scores overflow rows", rows, torch.int32, (H,), dev)
+        req("bal_scores overflow ptr", ptr, torch.int32, (H + 1,), dev)
+        req("bal_scores overflow idx", o_idx, torch.int32, (M,), dev)
+        req("bal_scores overflow w", o_w, torch.int32, (M,), dev)
+        req("bal_scores overflow hubs", hubs, torch.int32, (n_hub + 1, 2),
             dev)
-        req("bal_scores overflow idx", overflow[2], torch.int32, (M,), dev)
-        req("bal_scores overflow w", overflow[3], torch.int32, (M,), dev)
+        req("bal_scores overflow ranges", ranges, torch.int32, (G,), dev)
         _build.check_heavy("bal_scores", H, D, M)
+        # the hub rows' tables and tickets, zeroed by the row kernel
+        words = 4 * HUB_RANGE * G + n_hub
+        scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
     lib = _build.load("bal_round", _SIG)
     rel = torch.empty(R, dtype=torch.float32, device=dev)
     tgt = torch.empty(R, dtype=torch.int32, device=dev)
@@ -83,16 +98,16 @@ def bal_scores(ell_idx, ell_w, labels, vw, block_w, l_max, fb_of_block,
     args = (p(ell_idx), p(ell_w), p(labels), p(vw), p(block_w), p(l_max),
             p(parent), p(fb_of_block), R, D, max(0, min(int(n), R)), K,
             int(salt) & 0xFFFFFFFF)
-    err = lib.bal_scores(*args, p(rel), p(tgt), _build.stream_of(ell_idx))
+    err = lib.bal_scores(*args, p(rel), p(tgt), p(scratch), words,
+                         p(rows), H,
+                         _build.stream_of(ell_idx))
     _build.check(err, "bal_scores")
     form = "_dist" if dist else ""
     _build.count_launch("bal_scores" + form)
     if H:
-        # the heavy rows' label tables (2 slots a lane, key and sum),
-        # cleared by their CTAs
-        tab = torch.empty(4 * (H * D + M), dtype=torch.int32, device=dev)
-        err = lib.bal_scores_heavy(*args, H, *(p(t) for t in overflow), M,
-                                   p(tab), p(rel), p(tgt),
+        err = lib.bal_scores_heavy(*args, H, p(rows), p(ptr), p(hubs),
+                                   n_hub, p(ranges), G, p(o_idx), p(o_w), M,
+                                   p(scratch), p(rel), p(tgt),
                                    _build.stream_of(ell_idx))
         _build.check(err, "bal_scores_heavy")
         _build.count_launch("bal_scores_heavy" + form)

@@ -43,11 +43,14 @@ def heavy_adjacent_ref(ell_idx, ell_w, labels, vw, block_w, l_max, salt,
                        parent, overflow):
     """``adjacent_ref`` of the heavy rows over their whole rows: ``(rows,
     best, tgt_adj, own_conn)``. ``overflow`` is ``(rows, ptr, idx, w)``,
-    the arcs of rows ``rows`` beyond their slab lanes."""
-    rows, ptr, o_idx, o_w = overflow
+    the arcs of rows ``rows`` beyond their slab lanes (the plan after
+    them, if given, is the kernel's: this version splits the rows by
+    ``heavy.lane_items`` itself and sums the parts)."""
+    rows, ptr, o_idx, o_w = overflow[:4]
     H = rows.shape[0]
-    hid, (ids, w) = heavy_arcs(rows, ptr, (ell_idx, ell_w), (o_idx, o_w))
-    g_row, g_lab, _, conn = label_groups(hid, labels[ids.long()], w)
+    hid, item, (ids, w) = heavy_arcs(rows, ptr, (ell_idx, ell_w),
+                                     (o_idx, o_w))
+    g_row, g_lab, _, conn = label_groups(hid, item, labels[ids.long()], w)
     lab = g_lab.long()
     r_own, r_vw = labels[rows.long()], vw[rows.long()]
     own_g = r_own[g_row]

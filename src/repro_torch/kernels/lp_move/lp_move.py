@@ -8,7 +8,8 @@ stacked level-0 clustering). A CPU tensor runs the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises.
 
 A chunk with heavy rows (arcs beyond the slab, ``overflow``) also runs
-the kernel's heavy-row path, counted apart as ``lp_move_heavy``. A call
+the kernel's heavy-row path (a warp a row, hub rows split over CTAs by
+their plan, ``heavy.py``), counted apart as ``lp_move_heavy``. A call
 in the distributed admission form (``nbud``, the ``dist/`` engine's)
 counts as ``lp_move_dist`` (and ``lp_move_heavy_dist``) instead.
 """
@@ -23,23 +24,25 @@ from .. import _build
 from .ref import lp_move_chunk_ref, lp_move_chunk_stacked_ref
 
 _SIG = {"lp_move_chunk": [_build.P] * 6 + [_build.I] * 4 + [_build.U]
-        + [_build.I] * 2 + [_build.P] * 6 + [_build.I] + [_build.P] * 4,
+        + [_build.I] * 2 + [_build.P] * 3 + [_build.I, _build.P, _build.I]
+        + [_build.P] * 4 + [_build.I] + [_build.P] * 4,
         "lp_move_chunk_stacked": [_build.P] * 6 + [_build.I] * 4
         + [_build.P] * 7,
-        "lp_move_scratch_bytes": [_build.I] * 5 + [_build.P]}
+        "lp_move_scratch_bytes": [_build.I] * 6 + [_build.P]}
 
 # the kernel's grid takes the request from blockIdx.y
 MAX_STACK = 65535
 
 
 @functools.lru_cache(maxsize=64)
-def _scratch_bytes(S: int, R: int, num_labels: int, H: int = 0,
-                   lanes: int = 0) -> int:
+def _scratch_bytes(S: int, R: int, num_labels: int, H: int = 0, G: int = 0,
+                   hubs: int = 0) -> int:
     """Bytes of scratch the kernel needs for S requests (1: a solo call)
-    of R rows, H of them heavy with ``lanes`` lanes in all."""
+    of R rows, H of them heavy, ``hubs`` of those hub rows over G hub
+    ranges."""
     lib = _build.load("lp_move", _SIG)
     n = ctypes.c_int64()
-    _build.check(lib.lp_move_scratch_bytes(S, R, num_labels, H, lanes,
+    _build.check(lib.lp_move_scratch_bytes(S, R, num_labels, H, G, hubs,
                                            ctypes.addressof(n)), "lp_move")
     return n.value
 
@@ -58,9 +61,10 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     """``(moved, tgt)`` (R,) int32 for one ELL chunk; the contract of
     ``ref.lp_move_chunk_ref``. ``num_labels`` sizes the kernel's
     label-indexed weight tables: every label must lie below it.
-    ``overflow``: ``(rows, ptr, nlab, nw, ncw)`` int32 of the chunk's
-    heavy rows (``ops.overflow_operands``), with their budgets ``nbud``
-    sixth in the distributed admission form."""
+    ``overflow``: ``(rows, ptr, nlab, nw, ncw, hubs, ranges)`` int32 of
+    the chunk's heavy rows and their plan (``ops.overflow_operands``),
+    with their budgets ``nbud`` after ``ncw`` in the distributed admission
+    form."""
     if nlab.device.type == "cpu":
         return lp_move_chunk_ref(nlab, nw, ncw, own, vw, W, v0, salt,
                                  num_labels, nbud=nbud, overflow=overflow)
@@ -74,20 +78,24 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     for name, t in (("own", own), ("vw", vw)):
         _build.require(f"lp_move_chunk {name}", t, torch.int32, (R,), dev)
     check_launch(R, D, int(num_labels))
-    H, M, hv = 0, 0, (None,) * 6
+    H, M, G, n_hub, hv = 0, 0, 0, 0, (None,) * 8
     if overflow is not None and overflow[0].shape[0]:
-        want = 5 if nbud is None else 6     # + the budgets
+        want = 7 if nbud is None else 8     # + the budgets
         if len(overflow) != want:
             raise ValueError(f"lp_move_chunk: an overflow of "
                              f"{len(overflow)} entries; this admission "
-                             f"form takes {want}")
-        hv = tuple(overflow) + (None,) * (6 - len(overflow))
-        H, M = hv[0].shape[0], hv[2].shape[0]
-        _build.require("lp_move_chunk overflow rows", hv[0], torch.int32,
-                       (H,), dev)
-        _build.require("lp_move_chunk overflow ptr", hv[1], torch.int32,
-                       (H + 1,), dev)
-        for name, t in zip(("nlab", "nw", "ncw", "nbud"), hv[2:]):
+                             f"form takes {want} (ops.overflow_operands: "
+                             "the arcs' operands and the heavy-row plan)")
+        arcs = tuple(overflow[2:-2]) + (None,) * (8 - want)
+        hv = tuple(overflow[:2]) + tuple(overflow[-2:]) + arcs
+        H, M = hv[0].shape[0], hv[4].shape[0]
+        n_hub, G = hv[2].shape[0] - 1, hv[3].shape[0]
+        for name, t, shape in (("rows", hv[0], (H,)), ("ptr", hv[1], (H + 1,)),
+                               ("hubs", hv[2], (n_hub + 1, 2)),
+                               ("ranges", hv[3], (G,))):
+            _build.require(f"lp_move_chunk overflow {name}", t, torch.int32,
+                           shape, dev)
+        for name, t in zip(("nlab", "nw", "ncw", "nbud"), hv[4:]):
             if t is None:
                 continue
             _build.require(f"lp_move_chunk overflow {name}", t, torch.int32,
@@ -97,15 +105,14 @@ def lp_move_chunk(nlab, nw, ncw, own, vw, W: int, v0: int, salt: int,
     moved, tgt = torch.empty((2, R), dtype=torch.int32, device=dev)
     # the kernel's scratch, one allocation apart from the outputs so that
     # they do not keep it alive (the kernel clears what it needs cleared)
-    scratch = torch.empty(
-        _scratch_bytes(1, R, int(num_labels), H, H * D + M),
-        dtype=torch.uint8, device=dev)
+    scratch = torch.empty(_scratch_bytes(1, R, int(num_labels), H, G, n_hub),
+                          dtype=torch.uint8, device=dev)
     p = _build.ptr
     err = lib.lp_move_chunk(
         p(nlab), p(nw), p(ncw), p(nbud), p(own), p(vw), R, D, int(W),
-        int(v0), int(salt) & 0xFFFFFFFF, int(num_labels), H,
-        *(p(t) for t in hv), M, p(moved), p(tgt), p(scratch),
-        _build.stream_of(nlab))
+        int(v0), int(salt) & 0xFFFFFFFF, int(num_labels), H, p(hv[0]),
+        p(hv[1]), p(hv[2]), n_hub, p(hv[3]), G, *(p(t) for t in hv[4:]), M,
+        p(moved), p(tgt), p(scratch), _build.stream_of(nlab))
     _build.check(err, "lp_move")
     form = "" if nbud is None else "_dist"
     _build.count_launch("lp_move" + form)

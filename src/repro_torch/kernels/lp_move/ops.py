@@ -42,6 +42,7 @@ import torch
 from ...core import lp
 from ...core.lp import I32_MAX
 from .. import dispatch
+from ..heavy import HUB_RANGE, heavy_plan
 from .lp_move import lp_move_chunk, lp_move_chunk_stacked
 
 LANE = 32           # ELL neighbor lanes padded to the warp width
@@ -51,11 +52,14 @@ SLAB_ARC_FACTOR = 2  # D_cap: slab lanes <= max(LANE * rows, 2 m)
 class Overflow(NamedTuple):
     """The arcs of a slab's heavy rows beyond its D lanes, in CSR form:
     heavy row ``rows[h]`` (slab-local, ascending) owns arcs ``ptr[h] ..
-    ptr[h + 1]`` of ``idx`` / ``w``, which follow its D slab lanes."""
-    rows: np.ndarray  # (H,) int32
-    ptr: np.ndarray   # (H + 1,) int32, ptr[0] == 0
-    idx: np.ndarray   # (M_ov,) int32 neighbor ids
-    w: np.ndarray     # (M_ov,) int32 arc weights
+    ptr[h + 1]`` of ``idx`` / ``w``, which follow its D slab lanes; and
+    the heavy-row kernels' work plan over those rows (``heavy.py``)."""
+    rows: np.ndarray    # (H,) int32
+    ptr: np.ndarray     # (H + 1,) int32, ptr[0] == 0
+    idx: np.ndarray     # (M_ov,) int32 neighbor ids
+    w: np.ndarray       # (M_ov,) int32 arc weights
+    hubs: np.ndarray    # (n_hub + 1, 2) int32: hub rows, hub-lane offsets
+    ranges: np.ndarray  # (G,) int32: each hub range's first hub row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +114,15 @@ def split_bytes(deg: np.ndarray, rows: int, D: int, parts: int
                 ) -> Tuple[int, int, int]:
     """Bytes of an ELL build of ``rows`` slab rows of width D over degrees
     ``deg`` in ``parts`` chunks: ``(slab, overflow, temporaries)``, the
-    int32 slabs, the overflow (rows, pointers, arcs) and ``ell_rows``'
-    host temporaries (two int64 and one bool an arc, counted for all
-    arcs)."""
+    int32 slabs, the overflow (rows, pointers, arcs and at most this
+    much of heavy-row plan) and ``ell_rows``' host temporaries (two int64
+    and one bool an arc, counted for all arcs)."""
     extra = np.maximum(deg.astype(np.int64) - D, 0)
     heavy = int(np.count_nonzero(extra))
-    return (8 * rows * D, 4 * (2 * heavy + parts) + 8 * int(extra.sum()),
+    lanes = heavy * D + int(extra.sum())
+    plan = 12 * (heavy + parts) + 4 * (lanes // HUB_RANGE)
+    return (8 * rows * D,
+            4 * (2 * heavy + parts) + 8 * int(extra.sum()) + plan,
             17 * int(deg.sum()))
 
 
@@ -142,9 +149,11 @@ def ell_rows(indptr: np.ndarray, adjncy: np.ndarray, eweights: np.ndarray,
     np.cumsum(extra, out=ptr[1:])
     arc = np.repeat(indptr[r0 + heavy] + D - ptr[:-1], extra) \
         + np.arange(ptr[-1])
+    hubs, ranges = heavy_plan(D + extra)
     return Overflow(rows=heavy.astype(np.int32), ptr=ptr.astype(np.int32),
                     idx=np.asarray(adjncy[arc], dtype=np.int32),
-                    w=np.asarray(eweights[arc], dtype=np.int32))
+                    w=np.asarray(eweights[arc], dtype=np.int32), hubs=hubs,
+                    ranges=ranges)
 
 
 def build_move_chunks(g, num_chunks: int, device=None) -> MoveChunks:
@@ -198,14 +207,16 @@ def chunk_operands(labels, cluster_w, c_idx, v0: int, vweights, R: int):
 
 def overflow_operands(labels, cluster_w, ov, budget=None):
     """The kernel's overflow operands of one chunk, ``(rows, ptr, nlab,
-    nw, ncw)``, from its device ``Overflow``: the overflow arcs' labels
-    and cluster weights gathered, in O(overflow); with a label-indexed
-    ``budget`` (the distributed admission form), the arcs' budgets
-    sixth."""
-    rows, ptr, o_idx, o_w = ov
+    nw, ncw, hubs, ranges)``, from its device ``Overflow``: the overflow
+    arcs' labels and cluster weights gathered, in O(overflow), and the
+    heavy-row plan; with a label-indexed ``budget`` (the distributed
+    admission form), the arcs' budgets after ``ncw``."""
+    rows, ptr, o_idx, o_w, hubs, ranges = ov
     nlab = labels[o_idx.long()]
     out = (rows, ptr, nlab, o_w, cluster_w[nlab.long()])
-    return out if budget is None else out + (budget[nlab.long()],)
+    if budget is not None:
+        out += (budget[nlab.long()],)
+    return out + (hubs, ranges)
 
 
 def _chunk_step(labels, cluster_w, c_idx, c_w, v0: int, salt: int,

@@ -13,9 +13,13 @@ It takes the kernel's split form: a chunk's heavy rows have arcs beyond
 the slab's D lanes (``overflow``), and their phase A runs over the
 distinct labels of the whole row (``heavy_targets_ref``), as the kernel's
 heavy-row path does, in either admission form (the distributed form's
-overflow carries the labels' budgets too). The tie chain is a total order over distinct labels
-and a label's connectivity is an int32 sum, exact in any order, so the
-split gives what the whole row gives.
+overflow carries the labels' budgets too). As the kernel does, it sums a
+label's weight (and takes its smallest cluster weight and budget) per
+work item first, a warp-class row whole or one hub range
+(``kernels/heavy.py``), then over the items of the row. The tie chain
+is a total order over distinct labels and a label's connectivity is an
+int32 sum, exact in any order, so the split gives what the whole row
+gives.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from ...core.lp import (I32_MAX, _argmax_target, cumsum32, hash32,
                         segment_min, segment_sum)
+from ..heavy import lane_items
 
 def ell_conn(nlab: torch.Tensor, nw: torch.Tensor) -> torch.Tensor:
     """``conn[r, j] = sum_i nw[r, i] * [nlab[r, i] == nlab[r, j]]`` (int32):
@@ -59,27 +64,39 @@ def heavy_arcs(rows, ptr, slab, extra):
     """The arcs of heavy rows as flat (H-row index, values...) lists:
     each heavy row's D slab lanes of every (R, D) table in ``slab``
     followed by its overflow arcs (``ptr`` CSR offsets into each (M_ov,)
-    array of ``extra``), lanes with a negative first value dropped."""
+    array of ``extra``), lanes with a negative first value dropped; and
+    each arc's work item (``heavy.lane_items``)."""
     H, D = rows.shape[0], slab[0].shape[1]
     dev = slab[0].device
-    hid = torch.cat([
-        torch.arange(H, device=dev).repeat_interleave(D),
-        torch.arange(H, device=dev).repeat_interleave(
-            (ptr[1:] - ptr[:-1]).long())])
+    extra_n = (ptr[1:] - ptr[:-1]).long()
+    hid = torch.cat([torch.arange(H, device=dev).repeat_interleave(D),
+                     torch.arange(H, device=dev).repeat_interleave(extra_n)])
+    pos = torch.cat([torch.arange(D, device=dev).repeat(H),
+                     D + torch.arange(int(ptr[-1]), device=dev)
+                     - ptr[:-1].long().repeat_interleave(extra_n)])
+    item = lane_items(hid, pos, D + extra_n)
     vals = [torch.cat([s[rows.long()].reshape(-1), e])
             for s, e in zip(slab, extra)]
     keep = vals[0] >= 0
-    return hid[keep], [v[keep] for v in vals]
+    return hid[keep], item[keep], [v[keep] for v in vals]
 
 
-def label_groups(hid, lab, w):
+def label_groups(hid, item, lab, w, *mins):
     """Distinct (row, label) groups of flat arcs: ``(g_row, g_lab, gid,
-    conn)``, ``gid`` each arc's group and ``conn`` each group's int32
-    weight sum."""
-    key = (hid.to(torch.int64) << 32) | lab.to(torch.int64)
-    uniq, gid = torch.unique(key, return_inverse=True)
-    conn = segment_sum(w, gid, uniq.shape[0])
-    return (uniq >> 32), (uniq & 0xFFFFFFFF).to(torch.int32), gid, conn
+    conn, mins...)``, ``gid`` each arc's group, ``conn`` each group's
+    int32 weight sum and each of ``mins`` its smallest value, each summed
+    (taken) per work item ``item`` first and then over the row's items,
+    as the kernels do."""
+    part = torch.stack([item.long(), hid.long(), lab.long()], 1)
+    uniq, pid = torch.unique(part, dim=0, return_inverse=True)
+    p_sum = segment_sum(w, pid, uniq.shape[0])
+    p_mins = [segment_min(m, pid, uniq.shape[0]) for m in mins]
+    key = (uniq[:, 1] << 32) | (uniq[:, 2] & 0xFFFFFFFF)
+    g_key, gid_p = torch.unique(key, return_inverse=True)
+    conn = segment_sum(p_sum, gid_p, g_key.shape[0])
+    g_mins = [segment_min(m, gid_p, g_key.shape[0]) for m in p_mins]
+    return ((g_key >> 32), (g_key & 0xFFFFFFFF).to(torch.int32),
+            gid_p[pid], conn, *g_mins)
 
 
 def heavy_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
@@ -87,7 +104,8 @@ def heavy_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
     """Phase A of the heavy rows over their whole rows: ``(rows, mv, tgt,
     light)``. ``overflow`` is ``(rows, ptr, nlab, nw, ncw)``, the kernel's
     overflow operands, with the arcs' budgets ``nbud`` as a sixth entry in
-    the distributed admission form (``nbud`` the slab's); the lanes of one
+    the distributed admission form (``nbud`` the slab's), and the plan
+    after them, which this version derives itself; the lanes of one
     label carry one cluster weight and one budget (``chunk_operands``
     gathers them by label), whose minimum is taken."""
     rows, ptr, o_lab, o_w, o_cw = overflow[:5]
@@ -95,16 +113,14 @@ def heavy_targets_ref(nlab, nw, ncw, own, vw, W: int, salt: int,
     slab, extra = (nlab, nw, ncw), (o_lab, o_w, o_cw)
     if nbud is not None:
         slab, extra = slab + (nbud,), extra + (overflow[5],)
-    hid, vals = heavy_arcs(rows, ptr, slab, extra)
-    g_row, g_lab, gid, conn = label_groups(hid, vals[0], vals[1])
-    g_cw = segment_min(vals[2], gid, conn.shape[0])
+    hid, item, vals = heavy_arcs(rows, ptr, slab, extra)
+    g_row, g_lab, _, conn, g_cw, *g_bud = label_groups(hid, item, *vals)
     r_own, r_vw = own[rows.long()], vw[rows.long()]
     stay = g_lab == r_own[g_row]
     if nbud is None:
         fits = ((g_cw + r_vw[g_row]) <= W) | stay
     else:
-        g_bud = segment_min(vals[3], gid, conn.shape[0])
-        fits = (g_cw <= (g_bud - r_vw[g_row])) | stay
+        fits = (g_cw <= (g_bud[0] - r_vw[g_row])) | stay
     score = torch.where(fits, conn, -1)
     best, tgt = _argmax_target(g_row, g_lab, score, g_cw, salt, H - 1)
     light = segment_min(torch.where(score == best[g_row], g_cw, I32_MAX),

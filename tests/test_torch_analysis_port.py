@@ -294,9 +294,11 @@ def test_scratch_inventories_read_the_cuda_sources():
     assert c["TILE_KEYS"] == 4 * c["TILE"] and c["N_COUNTERS"] == 9
     one = limits.static_bytes("seg_merge", {"L": 1})
     assert one % 256 == 0 and one > 0
-    big = dict(S=1, R=4096, num_labels=4097, H=0, lanes=0)
-    assert limits.static_bytes("lp_move", dict(big, H=3, lanes=692)) > \
-        limits.static_bytes("lp_move", big)
+    big = dict(S=1, R=4096, num_labels=4097, H=0, G=0, hubs=0)
+    heavy = limits.static_bytes("lp_move", dict(big, H=3))
+    assert limits.static_bytes("lp_move", dict(big, H=3, G=2, hubs=1)) > \
+        heavy > limits.static_bytes("lp_move", big)
+    assert limits.cu_constants("common.cuh")["HUB_RANGE"] == 1024
 
 
 @pytest.mark.gpu
