@@ -119,8 +119,9 @@ exits non-zero if any one fails:
      gave it; ``Partitioner.compare`` of the same request against
      ``plain_mgp`` and ``single_level_lp`` must give the reference's cuts,
      feasible; ``python -m repro_torch.launch.partition --family rgg2d
-     --n 4000 --k 16 --compare --trace`` must exit 0 with three summary
-     lines of the reference CLI's cuts;
+     --n 4000 --k 16 --compare --trace`` (run beside the phase after the
+     session) must exit 0 with three summary lines of the reference
+     CLI's cuts;
   8. serving. (a) The stacked level-0 clustering of three requests on
      phase 4's graph (request seeds 0-2, k=16, preset fast) with
      ``kernel="fused"`` must equal the composed stacked form on the card
@@ -132,20 +133,21 @@ exits non-zero if any one fails:
      counted (a captured graph: as many as a solo call's) and its bound
      printed: the three requests' valid lanes over 3.35 TB/s. (b) A
      burst through ``PartitionServer(meshes=2, batch_max=8,
-     batch_window_ms=50)``: rgg2d n=65,536, k=16, fast, request seeds
-     0-5 twice (priorities 0/1) and seed 0 with ``quality="best"`` and a
+     batch_window_ms=50)``: rgg2d n=16,384, k=16, fast, request seeds
+     0-3 twice (priorities 0/1) and seed 0 with ``quality="best"`` and a
      600 s deadline, which admission downgrades to fast: every result ok
-     and equal to a solo run, the stacked kernel launched; its stats and
-     launch counts printed. (c) ``PartitionSession(stack="auto")
-     .submit_many`` of seed 0 fast, seed 1 fast, seed 0 best and seed 0
-     fast again on phase 4's graph: cuts 15465 and 15308 for seed 0, the
-     assignments of phases 4 and 7, seed 1 its solo run's, the duplicate
-     coalesced, the three distinct level 0s stacked (launch counts
-     checked), the batch's wall beside the solo walls. (d) ``python -m
+     and equal to a solo run, the stacked kernel launched, each worker
+     serving; its stats and launch counts printed. (c)
+     ``PartitionSession(stack="auto").submit_many`` of seed 0 fast, seed
+     0 best and seed 0 fast again on phase 4's graph: cuts 15465 and
+     15308, the assignments of phases 4 and 7, the duplicate coalesced,
+     the two distinct level 0s stacked (launch counts checked), the
+     batch's wall beside the solo walls. (d) ``python -m
      repro_torch.launch.serve --meshes 2 --requests 12 --n 4000 --k 8
-     --verify`` must exit 0. (e) 8b's burst through a port ``FrontDoor``
-     and two worker processes (``python -m repro_torch.launch.fabric
-     worker``, one ``PartitionServer(meshes=1)`` each, on the card):
+     --verify``, run beside (c), must exit 0. (e) 8b's burst through a
+     port ``FrontDoor`` and two worker processes (``python -m
+     repro_torch.launch.fabric worker``, one ``PartitionServer(meshes=1)``
+     each, on the card, started beside (c), the burst after (d)):
      every result ok in one attempt and equal to its solo run, both
      workers serving, each exiting 0 after SIGTERM; its wall beside 8b's
      and each worker process's CPU seconds;
@@ -200,9 +202,9 @@ exits non-zero if any one fails:
      before the batch): lp_move's distributed form, greedy_pick,
      seg_merge and bal_scores' table form must have launched there.
      With two cards or more the session also runs at P=2 (skipped on a
-     one-card machine). Then ``python -m repro_torch.launch.selftest
-     --devices 1 --test all kernels --n 2000`` on the card: every line
-     is printed and must pass.
+     one-card machine). Beside all that and phase 10, ``python -m
+     repro_torch.launch.selftest --devices 1 --test all kernels --n
+     2000`` on the card: every line is printed and must pass.
  12. the placement engine and the models it places, forward only, TF32
      off: (a) ``gnn_placement.plan`` of phase 4's graph with its ids
      shuffled (``np.random.default_rng(0).permutation``) on 8 devices,
@@ -246,7 +248,8 @@ exits non-zero if any one fails:
      at float32 on the card equals the CPU within 1e-4 (forward, aux, 8
      decode steps). (e) ``python -m repro_torch.launch.serve_lm --arch
      qwen2-7b --config full --batch 4 --prompt-len 12 --gen-len 20
-     --max-len 64`` exits 0. Prefill and per-step times by CUDA events,
+     --max-len 64`` exits 0 (run beside phase 12, and ended before (a)
+     starts). Prefill and per-step times by CUDA events,
      tokens per second and peak device memory for each model; no
      partitioner kernel may launch (the counts, zeroed just before, are
      printed). ``--lm-only`` runs phases 1 and 13 (no contract line).
@@ -270,8 +273,9 @@ exits non-zero if any one fails:
      tolerances; (e) ``python -m repro_torch.launch.train --arch
      gemma-2b --steps 20 --ckpt-dir D --ckpt-every 10``, then
      ``--steps 30`` resuming at step 20, then ``python -m
-     repro_torch.launch.gnn_partitioned_training``: all exit 0, the
-     example's loss falls. Step times by CUDA events, tokens (nodes) per
+     repro_torch.launch.gnn_partitioned_training`` beside those two, all
+     three started with phase 13 and run beside it and (a)-(d): all exit
+     0, the example's loss falls. Step times by CUDA events, tokens (nodes) per
      second and peak device memory; no partitioner kernel may launch in
      this process (the counts, zeroed just before, are printed).
      ``--train-only`` runs phases 1, 12a and 14 (no contract line).
@@ -288,7 +292,7 @@ exits non-zero if any one fails:
      run at once. Printed: the entries traced, the ops taped, the
      collectives logged, the fused entries' kernel launches (counted in
      the verifier's processes, which start at 0) and the phase's
-     seconds. ``--analysis-only`` runs phases 1 and 15 (no contract
+     seconds. The processes start beside phase 14. ``--analysis-only`` runs phases 1 and 15 (no contract
      line).
  16. the split layouts (``dist/sharding.py``: DTensor over a
      ``DeviceMesh``; ``launch/{mesh,steps,dryrun}.py``): (a) ``python -m
@@ -298,8 +302,9 @@ exits non-zero if any one fails:
      long_500k; arctic-480b decode_32k; gat-cora ogb_products; schnet
      molecule; dlrm-rm2 train_batch, serve_p99, retrieval_cand),
      qwen2-7b decode_32k on (2, 32, 8) and dlrm-rm2 serve_p99 on the
-     card mesh, six processes at once: each cell's bytes a card against
-     the card's memory, flops, collectives and seconds; (b) on a
+     card mesh, six processes at once, started beside phase 15: each
+     cell's bytes a card against the card's memory, flops, collectives
+     and seconds; (b) on a
      one-rank NCCL group and ``make_card_mesh()``: every SMOKE config's
      built steps (float32; train, prefill and decode, serve) on DTensors
      against the plain port's steps from the same state (losses 1e-5
@@ -312,6 +317,19 @@ exits non-zero if any one fails:
      partitioner kernel launches (the counts, zeroed just before, are
      printed).
      ``--dryrun-only`` runs phases 1 and 16 (no contract line).
+ 17. a fabric worker of several processes (``launch/fabric.py worker
+     --num-processes 2``, ``api/group.py``) on the one card, both
+     processes bound to card 0, behind a ``FrontDoor``: (a) at one device
+     a mesh each process is a whole worker: both register (``fg.p0``,
+     ``fg.p1``) and serve phase 8e's warm-up request, then a burst of 6
+     requests (rgg2d n = 4000-65536, seed 17, k=16, fused) must come back
+     ok in one attempt, each bit-identical to the same request run in
+     this process, both servers serving, and SIGTERM must end both with
+     exit 0 (the burst's wall and each request's latency printed); (b) at
+     two devices a mesh the group must exit 2 within 30 s, nothing
+     registered, naming card 0, which both processes hold: the spanning
+     form needs two cards, and is held on the CPU only.
+     ``--group-only`` runs phases 1 and 17 (no contract line).
 
 The line before the last is the ``{"kernels": [...]}`` record, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -490,6 +508,37 @@ def check(cond: bool, what: str) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ran(argv, timeout=600):
+    """``python argv`` (a CLI of the port) in its own process: (its
+    CompletedProcess, its wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *argv], cwd=ROOT, env=dict(
+        os.environ, PYTHONPATH=str(SRC)), capture_output=True, text=True,
+        timeout=timeout)
+    return out, time.perf_counter() - t0
+
+
+@functools.cache
+def waiters():
+    """The threads that wait on the CLIs the phases run beside their own
+    work."""
+    import concurrent.futures
+
+    return concurrent.futures.ThreadPoolExecutor(4)
+
+
+def beside(fn, *args, **kw):
+    """``fn(*args, **kw)`` started now on a thread: its future. A phase
+    starts its CLIs so that they run beside its own work, and takes each
+    result before it ends."""
+    return waiters().submit(fn, *args, **kw)
+
+
+def started(argv, timeout=600):
+    """``ran(argv, timeout)`` started now on a thread: its future."""
+    return beside(ran, argv, timeout)
 
 
 # ---------------------------------------------------------------------------
@@ -2312,6 +2361,11 @@ def phase_unconstrained(torch, api, build, g, lp_run, lp_wall, lp_launches):
     from repro_torch.kernels.seg_merge import ref as seg_ref
 
     session_first_loads(torch, api, build)
+    # the CLI runs beside the rest of the phase (after the session, whose
+    # count of nvcc processes would see it)
+    cmd = ["-m", "repro_torch.launch.partition", "--family", "rgg2d",
+           "--n", "4000", "--k", "16", "--compare", "--trace"]
+    cli = started(cmd)
 
     capture = Capture(torch)
     for module, attr, name in ((lp_ops, "lp_move_chunk", "lp_move"),
@@ -2411,19 +2465,14 @@ def phase_unconstrained(torch, api, build, g, lp_run, lp_wall, lp_launches):
         "launches of the comparison "
         f"{json.dumps(cmp_launches, sort_keys=True)}")
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.partition", "--family",
-           "rgg2d", "--n", "4000", "--k", "16", "--compare", "--trace"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
-                                                 PYTHONPATH=str(SRC)),
-                         capture_output=True, text=True, timeout=600)
+    out, secs = cli.result()
     check(out.returncode == 0,
           f"CLI exit {out.returncode}: {out.stderr[-2000:]}")
     lines = [json.loads(x) for x in out.stdout.splitlines()]
     summaries = [x for x in lines if "backend" in x]
     cuts = {x["backend"]: x["cut"] for x in summaries}
-    say(f"  CLI {' '.join(cmd[1:])}: exit 0, {len(lines)} lines, "
-        f"{time.perf_counter() - t0:.2f} s; cuts {cuts}")
+    say(f"  CLI {' '.join(cmd)}: exit 0, {len(lines)} lines, "
+        f"{secs:.2f} s (beside the phase); cuts {cuts}")
     check(len(summaries) == 3 and cuts == CLI_CUTS
           and all(x["feasible"] for x in summaries),
           f"CLI: summaries {summaries}; the reference CLI gives "
@@ -2438,7 +2487,14 @@ def phase_unconstrained(torch, api, build, g, lp_run, lp_wall, lp_launches):
 # ---------------------------------------------------------------------------
 
 SERVE_SEEDS = (0, 1, 2)       # 8a: request seeds of the stacked level 0
-BURST_N = 1 << 16             # 8b: rgg2d n of the served burst
+# 8b: rgg2d n of the served burst, which 8b and 8e serve three times
+# (~3.6 s a request at 2^15, most of it host-bound uncoarsening); request
+# seeds 0..BURST_SEEDS-1, each twice, and seed 0 'best' (one more than
+# batch_max, so that two workers both serve). At 2^16 and six seeds the
+# script came within 16 s of its 1200 s limit, and at 2^15 it ran past
+# it on a slower host
+BURST_N = 1 << 14
+BURST_SEEDS = 4
 
 
 def stacked_level0(torch, api, build, g):
@@ -2610,21 +2666,22 @@ def burst(torch, build, srv_cls, reqs, best, meshes):
 
 
 def served_burst(torch, api, build):
-    """8b: a burst of 13 requests through a one-worker and then a
-    two-worker PartitionServer on the card, each result against a solo
+    """8b: a burst of 2 x BURST_SEEDS + 1 requests through a one-worker
+    and then a two-worker PartitionServer on the card, each result against a solo
     run; one ``quality="best"`` request with a deadline is downgraded to
     ``fast`` at admission. No attempt may fail (a failed stacked call
     would be retried solo), and the launch counts are pinned: level 0 of
     every stacked request runs in the stacked kernel, the rest of each
     distinct run in solo ``lp_move`` calls. Returns the two-worker
-    burst's launch counts."""
+    burst's launch counts and 8e's arguments (the requests, the 'best'
+    one, the solo runs, the graph)."""
     from repro_torch.core.deep_mgp import level0_cluster_plan
     from repro_torch.serve import PartitionServer
 
     spec = api.GraphSpec("rgg2d", BURST_N, 8.0, seed=17)
     base = {s: api.PartitionRequest(graph=spec, k=16, preset="fast", seed=s)
-            for s in range(6)}
-    reqs = [base[s] for s in range(6)] * 2
+            for s in range(BURST_SEEDS)}
+    reqs = [base[s] for s in range(BURST_SEEDS)] * 2
     best = dataclasses.replace(base[0], quality="best")
     solo, solo_lp, solo_wall = {}, {}, 0.0
     for s, r in base.items():
@@ -2658,6 +2715,8 @@ def served_burst(torch, api, build):
               f"{tag}: the deadline-bearing quality='best' request was not "
               "downgraded to fast")
         check(stats["retried"] == 0, f"{tag}: {stats['retried']} retries")
+        check(all(stats["per_worker_served"]),
+              f"{tag}: a worker served nothing: {stats['per_worker_served']}")
         served = list({id(r.result): r.result for r in results}.values())
         stacked = [c for c in hints if c[1]]
         want_stacked = level0 * len(stacked)
@@ -2669,7 +2728,8 @@ def served_burst(torch, api, build):
               f"lp_move {launches['lp_move']}; expected {want_stacked} and "
               f"{want_lp} (stacked level 0s {hints})")
         say(f"  {tag} served burst: rgg2d n={BURST_N}, k=16, fast, seeds "
-            f"0-5 twice + seed 0 'best' (deadline 600 s): all ok in one "
+            f"0-{BURST_SEEDS - 1} twice + seed 0 'best' (deadline 600 s): "
+            "all ok in one "
             f"attempt, bit-identical to solo runs; wall {wall:.3f} s, "
             f"process CPU {cpu:.3f} s, throughput "
             f"{len(results) / wall:.3f} requests/s; stats "
@@ -2678,11 +2738,10 @@ def served_burst(torch, api, build):
             f"stacked level 0s (distinct, stacked, s) {hints}; trace "
             f"seconds by phase, the {len(served)} distinct served runs "
             f"{json.dumps(phase_seconds(served))}")
-    say(f"  8b the 6 distinct solo runs: {solo_wall:.3f} s, lp_move "
+    say(f"  8b the {len(solo)} distinct solo runs: {solo_wall:.3f} s, lp_move "
         f"{json.dumps(solo_lp)}, trace seconds by phase "
         f"{json.dumps(phase_seconds(solo.values()))}")
-    fabric_burst(api, reqs, best, solo, spec)
-    return launches
+    return launches, (reqs, best, solo, spec)
 
 
 def proc_cpu_s(pid: int) -> float:
@@ -2691,64 +2750,83 @@ def proc_cpu_s(pid: int) -> float:
     return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
 
 
-def fabric_burst(api, reqs, best, solo, spec):
-    """8e: 8b's burst through a port ``FrontDoor`` and two worker
-    processes (``python -m repro_torch.launch.fabric worker``: one
-    ``PartitionServer(meshes=1)`` each, on the card, each with its own
-    CUDA context and interpreter). Each worker first serves one small
-    request (the kernels' load and the CUDA context, not timed); then the
-    13 requests go in at once. Every result must be ok in one attempt and
-    equal its solo run (the 'best' request with a deadline downgraded to
-    fast), both workers must serve; the wall and each worker process's
-    CPU seconds over the burst are printed. The workers are stopped by
-    SIGTERM (a drain) and must exit 0."""
-    from repro_torch.fabric import FabricClient, FrontDoor
+def fabric_started():
+    """8e's port ``FrontDoor`` and two worker processes (``python -m
+    repro_torch.launch.fabric worker``: one ``PartitionServer(meshes=1)``
+    each, on the card, each with its own CUDA context and interpreter),
+    started now, beside 8c: (front door, {server id: Popen}, start
+    time). ``fabric_stopped`` ends them."""
+    from repro_torch.fabric import FrontDoor
 
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    fd = FrontDoor(port=0, lease_ttl_s=30.0)
+    t0 = time.perf_counter()
+    procs = {f"fw{i}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.fabric", "worker",
+         "--frontdoor", f"{fd.host}:{fd.port}", "--server-id", f"fw{i}",
+         "--heartbeat-s", "1.0"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, text=True) for i in range(2)}
+    return fd, procs, t0
+
+
+def fabric_stopped(fabric):
+    """SIGTERM (a drain) to 8e's live workers, then the front door
+    closed: their exit codes (each wait bounded)."""
+    fd, procs, _ = fabric
+    for p in procs.values():
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    codes = []
+    for p in procs.values():
+        try:
+            codes.append(p.wait(timeout=120))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait(timeout=30))
+    fd.close()
+    return codes
+
+
+def fabric_burst(api, fabric, reqs, best, solo, spec):
+    """8e: 8b's burst through ``fabric`` (``fabric_started``'s, whose
+    workers started beside 8c). Each worker first serves one small
+    request (the kernels' load and the CUDA context, not timed); then
+    8b's requests go in at once. Every result must be ok in one attempt
+    and equal its solo run (the 'best' request with a deadline
+    downgraded to fast), both workers must serve; the wall and each
+    worker process's CPU seconds over the burst are printed. The workers
+    are stopped by SIGTERM (a drain) and must exit 0."""
+    from repro_torch.fabric import FabricClient
+
+    fd, procs, t0 = fabric
     warm = api.PartitionRequest(graph=api.GraphSpec("rgg2d", 4000, 8.0,
                                                     seed=17), k=16)
-    with FrontDoor(port=0, lease_ttl_s=30.0) as fd:
-        procs = {f"fw{i}": subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.fabric", "worker",
-             "--frontdoor", f"{fd.host}:{fd.port}", "--server-id",
-             f"fw{i}", "--heartbeat-s", "1.0"], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, text=True) for i in range(2)}
-        try:
-            t0 = time.perf_counter()
-            for sid, p in procs.items():
-                line = json.loads(p.stdout.readline() or "{}")
-                check(line.get("server_id") == sid,
-                      f"8e: worker {sid} did not start: {line}")
-            while len(fd.status()["servers"]) < 2:
-                check(time.perf_counter() - t0 < 120,
-                      "8e: the workers never registered")
-                time.sleep(0.05)
-            with FabricClient(fd.host, fd.port) as client:
-                w = [f.result(timeout=600) for f in
-                     [client.submit(warm) for _ in procs]]
-                start = time.perf_counter() - t0
-                check(all(r.ok for r in w) and {r.server for r in w}
-                      == set(procs), f"8e: warm-up {[r.summary() for r in w]}")
-                cpu0 = {sid: proc_cpu_s(p.pid) for sid, p in procs.items()}
-                t1 = time.perf_counter()
-                futs = [client.submit(r, priority=i % 2)
-                        for i, r in enumerate(reqs)]
-                futs.append(client.submit(best, deadline_s=600))
-                results = [f.result(timeout=900) for f in futs]
-                wall = time.perf_counter() - t1
-            cpu = {sid: proc_cpu_s(p.pid) - cpu0[sid]
-                   for sid, p in procs.items()}
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.send_signal(signal.SIGTERM)
-            codes = []
-            for p in procs.values():
-                try:
-                    codes.append(p.wait(timeout=120))
-                except subprocess.TimeoutExpired:
-                    p.kill()
-                    codes.append(p.wait(timeout=30))
+    try:
+        for sid, p in procs.items():
+            line = json.loads(p.stdout.readline() or "{}")
+            check(line.get("server_id") == sid,
+                  f"8e: worker {sid} did not start: {line}")
+        while len(fd.status()["servers"]) < 2:
+            check(time.perf_counter() - t0 < 120,
+                  "8e: the workers never registered")
+            time.sleep(0.05)
+        with FabricClient(fd.host, fd.port) as client:
+            w = [f.result(timeout=600) for f in
+                 [client.submit(warm) for _ in procs]]
+            start = time.perf_counter() - t0
+            check(all(r.ok for r in w) and {r.server for r in w}
+                  == set(procs), f"8e: warm-up {[r.summary() for r in w]}")
+            cpu0 = {sid: proc_cpu_s(p.pid) for sid, p in procs.items()}
+            t1 = time.perf_counter()
+            futs = [client.submit(r, priority=i % 2)
+                    for i, r in enumerate(reqs)]
+            futs.append(client.submit(best, deadline_s=600))
+            results = [f.result(timeout=900) for f in futs]
+            wall = time.perf_counter() - t1
+        cpu = {sid: proc_cpu_s(p.pid) - cpu0[sid]
+               for sid, p in procs.items()}
+    finally:
+        codes = fabric_stopped(fabric)
     for r, req in zip(results, reqs + [best]):
         check(r.ok and r.attempts == 1,
               f"8e: seed {req.seed}: {r.summary()}")
@@ -2766,16 +2844,19 @@ def fabric_burst(api, reqs, best, solo, spec):
         f"{len(results) / wall:.3f} requests/s; worker CPU seconds "
         f"{json.dumps({k: round(v, 3) for k, v in cpu.items()})} (sum "
         f"{sum(cpu.values()):.3f}); served {json.dumps(served)}; workers "
-        f"up and warm after {start:.2f} s; exit codes {codes}")
+        f"up and warm after {start:.2f} s (started beside 8c); exit codes "
+        f"{codes}")
 
 
 def served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
                      un_wall, solo_launches):
-    """8c: ``submit_many`` of four requests on the main path's graph
+    """8c: ``submit_many`` of three requests on the main path's graph
     through a ``stack="auto"`` session on the card: seed 0 fast and best
     must give phase 4's and phase 7's assignments (the reference's cuts),
-    seed 1 its solo run's, and the duplicate shares seed 0's run. Returns
-    the batch's launch counts. ``solo_launches``: phases 4's and 7's."""
+    and the duplicate shares seed 0's run. Returns the batch's launch
+    counts. ``solo_launches``: phases 4's and 7's. (A fourth request, seed
+    1 fast, and its solo run went to keep the script inside its limit;
+    8a stacks three seeds at this size.)"""
     from repro_torch.core.deep_mgp import level0_cluster_plan
 
     def req(seed, quality):
@@ -2783,13 +2864,7 @@ def served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
                                     preset="fast", seed=seed,
                                     quality=quality)
 
-    reqs = [req(0, "fast"), req(1, "fast"), req(0, "best"), req(0, "fast")]
-    build.reset_launches()
-    t0 = time.perf_counter()
-    solo1 = api.Partitioner().run(reqs[1])
-    torch.cuda.synchronize()
-    solo1_wall = time.perf_counter() - t0
-    solo1_launches = dict(build.LAUNCHES)
+    reqs = [req(0, "fast"), req(0, "best"), req(0, "fast")]
     build.reset_launches()
     t0 = time.perf_counter()
     with HintTimes() as hints, api.PartitionSession(stack="auto") as sess:
@@ -2799,37 +2874,33 @@ def served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     for r, want, what in ((out[0], lp_run, "phase 4's"),
-                          (out[2], un_run, "phase 7's"),
-                          (out[1], solo1, "its solo run's")):
+                          (out[1], un_run, "phase 7's")):
         check(np.array_equal(r.assignment, want.assignment),
               f"8c: seed {r.request.seed} {r.request.quality} differs from "
               f"{what} assignment")
-    check(out[0].cut == FULL_CUT and out[2].cut == UNCONSTRAINED_CUT
+    check(out[0].cut == FULL_CUT and out[1].cut == UNCONSTRAINED_CUT
           and all(r.feasible for r in out),
           f"8c: cuts {[r.cut for r in out]}; expected {FULL_CUT} (fast) "
           f"and {UNCONSTRAINED_CUT} (best), feasible")
-    check(out[3] is out[0] and served == 3,
+    check(out[2] is out[0] and served == 2,
           f"8c: the duplicate did not share seed 0's run ({served} runs)")
     plan = level0_cluster_plan(g, 16, reqs[0].resolve_config())
     level0 = plan["num_iterations"] * plan["num_chunks"]
-    want_solo = sum(c["lp_move"] for c in (*solo_launches, solo1_launches)) \
-        - 3 * level0
+    want_solo = sum(c["lp_move"] for c in solo_launches) - 2 * level0
     check(launches["lp_move_stacked"] == level0
           and launches["lp_move"] == want_solo,
           f"8c: lp_move_stacked {launches['lp_move_stacked']}, lp_move "
           f"{launches['lp_move']}; expected {level0} and {want_solo}: the "
-          "three distinct requests' level 0 stacked, the rest solo")
-    say(f"  8c submit_many (seed 0 fast, seed 1 fast, seed 0 best, seed 0 "
-        f"fast again) at rgg2d {FULL_N}: cuts {[r.cut for r in out]}, "
-        f"{served} runs; batch wall {wall:.3f} s against the solo walls "
-        f"{lp_wall:.3f} + {solo1_wall:.3f} + {un_wall:.3f} = "
-        f"{lp_wall + solo1_wall + un_wall:.3f} s (phases 4, 8c, 7)")
-    say(f"  8c launches, batch {json.dumps(launches, sort_keys=True)}; solo "
-        f"seed 1 {json.dumps(solo1_launches, sort_keys=True)}")
+          "two distinct requests' level 0 stacked, the rest solo")
+    say(f"  8c submit_many (seed 0 fast, seed 0 best, seed 0 fast again) "
+        f"at rgg2d {FULL_N}: cuts {[r.cut for r in out]}, {served} runs; "
+        f"batch wall {wall:.3f} s against the solo walls {lp_wall:.3f} + "
+        f"{un_wall:.3f} = {lp_wall + un_wall:.3f} s (phases 4, 7)")
+    say(f"  8c launches, batch {json.dumps(launches, sort_keys=True)}")
     say(f"  8c stacked level 0 (distinct, stacked, s) {hints.calls}; trace "
-        f"seconds by phase, the batch's 3 runs "
-        f"{json.dumps(phase_seconds(out[:3]))}, the solo runs "
-        f"{json.dumps(phase_seconds([lp_run, solo1, un_run]))}")
+        f"seconds by phase, the batch's 2 runs "
+        f"{json.dumps(phase_seconds(out[:2]))}, the solo runs "
+        f"{json.dumps(phase_seconds([lp_run, un_run]))}")
     return launches
 
 
@@ -2838,27 +2909,32 @@ def phase_serving(torch, api, build, g, lp_run, lp_wall, un_run, un_wall,
     say("== phase 8: serving: stacked level 0, a served burst, a served "
         "batch at the main path's size, the serve CLI")
     row = stacked_level0(torch, api, build, g)
-    burst = served_burst(torch, api, build)
-    main = served_main_size(torch, api, build, g, lp_run, lp_wall, un_run,
-                            un_wall, (by_path["main"],
-                                      by_path["unconstrained"]))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--meshes", "2",
-           "--requests", "12", "--n", "4000", "--k", "8", "--verify"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
-                                                 PYTHONPATH=str(SRC)),
-                         capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0,
-          f"serve CLI exit {out.returncode}: {out.stderr[-2000:]}")
-    lines = [json.loads(x) for x in out.stdout.splitlines()]
-    check({"verify": "bit-identical"} in lines
-          and sum(1 for x in lines if x.get("ok")) == 12,
-          f"serve CLI: {out.stdout[-2000:]}")
-    stats = lines[-1]["stats"]
-    say(f"  8d CLI {' '.join(cmd[1:])}: exit 0, 12 ok, verify "
-        f"bit-identical, {time.perf_counter() - t0:.2f} s; batches "
-        f"{stats['batches']}, coalesced {stats['coalesced']}, wall "
-        f"{stats['wall_s']} s")
+    burst, to_fabric = served_burst(torch, api, build)
+    # 8d's CLI and 8e's workers start beside 8c; 8e's burst runs after
+    cmd = ["-m", "repro_torch.launch.serve", "--meshes", "2", "--requests",
+           "12", "--n", "4000", "--k", "8", "--verify"]
+    cli = started(cmd)
+    fabric = fabric_started()
+    try:
+        main = served_main_size(torch, api, build, g, lp_run, lp_wall,
+                                un_run, un_wall, (by_path["main"],
+                                                  by_path["unconstrained"]))
+        out, secs = cli.result()
+        check(out.returncode == 0,
+              f"serve CLI exit {out.returncode}: {out.stderr[-2000:]}")
+        lines = [json.loads(x) for x in out.stdout.splitlines()]
+        check({"verify": "bit-identical"} in lines
+              and sum(1 for x in lines if x.get("ok")) == 12,
+              f"serve CLI: {out.stdout[-2000:]}")
+        stats = lines[-1]["stats"]
+        say(f"  8d CLI {' '.join(cmd)}: exit 0, 12 ok, verify "
+            f"bit-identical, {secs:.2f} s (beside 8c); batches "
+            f"{stats['batches']}, coalesced {stats['coalesced']}, wall "
+            f"{stats['wall_s']} s")
+    except BaseException:
+        fabric_stopped(fabric)
+        raise
+    fabric_burst(api, fabric, *to_fabric)
     row["launches"] = main["lp_move_stacked"]
     return row, {"serve_burst": burst, "serve_main": main}
 
@@ -3345,8 +3421,17 @@ def mesh_batch(torch, api, mesh, g, models, single):
     return out, time.perf_counter() - t0
 
 
-def phase_mesh(torch, api, g, lp_run, walls, traces):
-    """Phase 11. Returns the rank's launches over the batch."""
+def selftest_started():
+    """Phase 11's selftest (its own ranks and NCCL group), started now,
+    beside phase 10 and the mesh: its future."""
+    return started(["-m", "repro_torch.launch.selftest", "--devices", "1",
+                    "--test", "all", "kernels", "--n", str(SELFTEST_N)],
+                   timeout=300)
+
+
+def phase_mesh(torch, api, g, lp_run, walls, traces, selftest):
+    """Phase 11 (``selftest``: ``selftest_started``'s). Returns the rank's
+    launches over the batch."""
     from repro_torch.dist.dist_lp import make_mesh_1d
 
     t_phase = time.perf_counter()
@@ -3409,12 +3494,7 @@ def phase_mesh(torch, api, g, lp_run, walls, traces):
     else:
         say("  P=2: one card visible, not run (P > 1 on cards is "
             "unmeasured here)")
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.selftest", "--devices",
-         "1", "--test", "all", "kernels", "--n", str(SELFTEST_N)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    proc, secs = selftest.result()
     lines = [json.loads(x) for x in proc.stdout.splitlines()
              if x.startswith("{")]
     for x in lines:
@@ -3422,8 +3502,8 @@ def phase_mesh(torch, api, g, lp_run, walls, traces):
     check(proc.returncode == 0 and lines and all(x["pass"] for x in lines),
           f"selftest --devices 1 failed ({proc.returncode}): "
           f"{proc.stderr[-2000:]}")
-    say(f"  selftest: {len(lines)} checks passed in "
-        f"{time.perf_counter() - t0:.1f} s; phase 11 "
+    say(f"  selftest: {len(lines)} checks passed in {secs:.1f} s (beside "
+        f"phase 10 and the mesh); phase 11 "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launch
 
@@ -4141,15 +4221,11 @@ def lm_smoke_on_card(torch, dev):
             f"decode steps (max abs difference {err:.3e})")
 
 
-def lm_cli():
-    """13e: the serving CLI at qwen2-7b's full CONFIG, in its own
-    process on the card; its JSON summary."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_lm"]
-                         + LM_CLI, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    wall = time.perf_counter() - t0
+def lm_cli(outcome):
+    """13e: the serving CLI at qwen2-7b's full CONFIG, run in its own
+    process on the card beside phase 12 (``outcome``: ``ran``'s); its
+    JSON summary."""
+    out, wall = outcome
     for line in out.stdout.splitlines():
         say(f"  13e | {line}")
     check(out.returncode == 0, f"serve_lm exited {out.returncode}: "
@@ -4158,13 +4234,22 @@ def lm_cli():
     check(summary["ok"] and summary["device"] != "cpu",
           f"serve_lm: {summary}")
     say(f"  13e python -m repro_torch.launch.serve_lm {' '.join(LM_CLI)}: "
-        f"exit 0 in {wall:.1f} s (process start and weights included)")
+        f"exit 0 in {wall:.1f} s (process start and weights included; "
+        "beside phase 12)")
     return summary
 
 
-def phase_lm(torch, build, dev=None):
-    """Phase 13 on ``dev`` (card 0): the LMs' serving path. Returns the
-    kernel launches of the phase (all 0: the path runs none of them)."""
+def lm_cli_started():
+    """13e's CLI started now (beside phase 12): its future."""
+    return started(["-m", "repro_torch.launch.serve_lm", *LM_CLI])
+
+
+def phase_lm(torch, build, cli, dev=None):
+    """Phase 13 on ``dev`` (card 0): the LMs' serving path (``cli``: 13e's
+    future, which must end before the phase's own models take the card).
+    Returns the kernel launches of the phase (all 0: the path runs none
+    of them)."""
+    cli = cli.result()
     t_phase = time.perf_counter()
     dev = dev or torch.device("cuda", 0)
     say("== phase 13: the decoder-only LMs (full CONFIG widths, forward "
@@ -4194,7 +4279,7 @@ def phase_lm(torch, build, dev=None):
     check(not any(launches.values()),
           f"phase 13: the LM path launched a partitioner kernel: {launches}")
     torch.cuda.empty_cache()
-    rows.append({"cli": lm_cli()})
+    rows.append({"cli": lm_cli(cli)})
     say("  13 record " + json.dumps(rows))
     check(not failures, "phase 13: " + "; ".join(failures))
     say(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
@@ -4534,15 +4619,10 @@ def smoke_steps_on_card(torch, dev):
             f"allowance, share {share})")
 
 
-def run_cli(module, args, what):
-    """``python -m module args`` in its own process on the card: its
-    output lines."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
-                         env=env, capture_output=True, text=True,
-                         timeout=600)
-    wall = time.perf_counter() - t0
+def run_cli(module, args, what, outcome):
+    """``python -m module args``, run in its own process on the card
+    (``outcome``: ``ran``'s): its output lines."""
+    out, wall = outcome
     for line in out.stdout.splitlines():
         say(f"  {what} | {line}")
     check(out.returncode == 0, f"{module} exited {out.returncode}: "
@@ -4552,31 +4632,54 @@ def run_cli(module, args, what):
     return out.stdout.splitlines()
 
 
-def train_clis():
-    """14e: the training CLI resumes from its checkpoints; the example
-    trains on its placement."""
+TRAIN_EXAMPLE = "repro_torch.launch.gnn_partitioned_training"
+
+
+def train_clis_started():
+    """14e, started before phase 14's own steps (at phase 13's start in
+    the whole script) so that it runs beside them: its processes train
+    SMOKE configs and the small example. The training CLI twice in turn
+    on one checkpoint directory, the example beside them. Returns
+    (directory, the two futures)."""
     import tempfile
 
-    with tempfile.TemporaryDirectory() as d:
-        first = run_cli("repro_torch.launch.train", TRAIN_CLI + [
-            "--steps", "20", "--ckpt-dir", d], "14e")
-        again = run_cli("repro_torch.launch.train", TRAIN_CLI + [
-            "--steps", "30", "--ckpt-dir", d], "14e")
-        check(sorted(os.listdir(d)) == ["step_00000010", "step_00000020",
-                                         "step_00000030"],
-              f"14e: checkpoints {sorted(os.listdir(d))}")
+    d = tempfile.TemporaryDirectory()
+
+    def runs():
+        return [(args, ran(["-m", "repro_torch.launch.train", *args]))
+                for args in (TRAIN_CLI + ["--steps", "20", "--ckpt-dir",
+                                          d.name],
+                             TRAIN_CLI + ["--steps", "30", "--ckpt-dir",
+                                          d.name])]
+
+    return d, beside(runs), started(["-m", TRAIN_EXAMPLE])
+
+
+def train_clis(d, runs, example):
+    """14e: the training CLI resumes from its checkpoints; the example
+    trains on its placement."""
+    with d:
+        (a1, o1), (a2, o2) = runs.result()
+        first = run_cli("repro_torch.launch.train", a1, "14e", o1)
+        again = run_cli("repro_torch.launch.train", a2, "14e", o2)
+        check(sorted(os.listdir(d.name)) == ["step_00000010",
+                                              "step_00000020",
+                                              "step_00000030"],
+              f"14e: checkpoints {sorted(os.listdir(d.name))}")
     steps = [int(x.split()[1]) for x in again if x.startswith("  step")]
     check(first[1].split()[1] == "0" and steps[0] == 20,
           f"14e: the second run did not resume at step 20 ({steps})")
-    ex = run_cli("repro_torch.launch.gnn_partitioned_training", [], "14e")
+    ex = run_cli(TRAIN_EXAMPLE, [], "14e", example.result())
     trail = [float(x) for x in ex[-1].split("loss: ")[1].split(" -> ")]
     falls("14e the example", trail)
     check("on cpu" not in ex[-1], "14e: the example ran on the CPU")
     say("  14e the second run resumed at step 20 from the checkpoint of "
-        "the first; the example's loss fell")
+        "the first; the example's loss fell (all three beside phase 13 "
+        "and 14a-d)")
 
 
-def phase_train(torch, build, smi, g, plan, place_launches, dev=None):
+def phase_train(torch, build, smi, g, plan, place_launches, dev=None,
+                clis=None):
     """Phase 14 on ``dev`` (card 0): training. Returns the kernel
     launches of the phase's own process (all 0: training launches none
     of them; the placement it trains on launched ``place_launches``)."""
@@ -4585,6 +4688,7 @@ def phase_train(torch, build, smi, g, plan, place_launches, dev=None):
     t_phase = time.perf_counter()
     dev = dev or torch.device("cuda", 0)
     say(f"== phase 14: training on the card (forward and backward; {smi})")
+    clis = clis or train_clis_started()
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "phase 14: TF32 matmuls are on")
@@ -4614,7 +4718,7 @@ def phase_train(torch, build, smi, g, plan, place_launches, dev=None):
     check(not any(launches.values()),
           f"phase 14: training launched a partitioner kernel: {launches}")
     torch.cuda.empty_cache()
-    train_clis()
+    train_clis(*clis)
     say("  14 record " + json.dumps(rows))
     say(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -4627,32 +4731,51 @@ ANALYSIS_NOTE = re.compile(
     r"files")
 
 
-def phase_analysis(build) -> dict:
-    """Phase 15: the verifier on the card, repo and fixtures at once.
-    Returns its kernel launches, by kernel."""
+def analysis_started():
+    """Phase 15's five verifier processes (the repo, then each fixture),
+    started now (beside phase 14, whose steps keep the card, not the
+    host, busy), their output going to files: (their directory, the
+    repo run's report path, {name: (Popen, stdout file, stderr file)},
+    the time they started)."""
     import tempfile
 
-    say("== phase 15: the verifier")
-    t_phase = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    with tempfile.TemporaryDirectory() as d:
-        report = Path(d) / "analysis.json"
-        runs = {"repo": ["--json", str(report)]}
-        runs.update({fx: ["--fixture", fx] for fx in ANALYSIS_FIXTURES})
-        procs = {name: subprocess.Popen(
+    d = tempfile.TemporaryDirectory()
+    report = Path(d.name) / "analysis.json"
+    runs = {"repo": ["--json", str(report)]}
+    runs.update({fx: ["--fixture", fx] for fx in ANALYSIS_FIXTURES})
+    procs = {}
+    for name, extra in runs.items():
+        out = open(Path(d.name) / f"{name}.out", "w+")
+        err = open(Path(d.name) / f"{name}.err", "w+")
+        procs[name] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.analysis", "--devices", "1",
-             *extra], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for name, extra in runs.items()}
+             *extra], cwd=ROOT, env=env, stdout=out, stderr=err, text=True),
+            out, err)
+    return d, report, procs, time.perf_counter()
+
+
+def phase_analysis(build, started) -> dict:
+    """Phase 15: the verifier on the card, repo and fixtures at once
+    (``started``: ``analysis_started``'s). Returns its kernel launches,
+    by kernel."""
+    say("== phase 15: the verifier")
+    d, report, procs, t_phase = started
+    with d:
         outs = {}
         try:
-            for name, proc in procs.items():
-                out, err = proc.communicate(timeout=300)
-                outs[name] = (proc.returncode, out, err)
+            for name, (proc, out, err) in procs.items():
+                proc.wait(timeout=300)
+                out.seek(0)
+                err.seek(0)
+                outs[name] = (proc.returncode, out.read(), err.read())
         finally:
-            for proc in procs.values():
+            for proc, out, err in procs.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+                out.close()
+                err.close()
         rc, out, err = outs["repo"]
         for line in out.splitlines():
             say(f"  15 repo | {line}")
@@ -4694,7 +4817,8 @@ def phase_analysis(build) -> dict:
         f"linted {files} files, "
         f"{len(unused)} allowlist entries unused on the card")
     say("  15 launches " + json.dumps(by_kernel))
-    say(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
+    say(f"  phase 15 {time.perf_counter() - t_phase:.1f} s (from its "
+        "processes' start, beside phase 14)")
     return by_kernel
 
 
@@ -4928,11 +5052,27 @@ def flat_tensors(tree):
     return [tree]
 
 
-def phase_dryrun(torch, build, smi) -> dict:
-    """Phase 16: the split layouts. Returns this phase's kernel launches
-    (all 0: no model step launches a partitioner kernel)."""
+def dryrun_started(torch):
+    """16a's dry-run processes, started now (beside phase 15, whose
+    verifier keeps one core busy for most of its time): (their output
+    directory, the processes, the time they started)."""
     import tempfile
 
+    d = tempfile.TemporaryDirectory()
+    out = Path(d.name)
+    procs = [dryrun_cells(torch, DRYRUN_CELLS, "pod", out / "pod",
+                          DRYRUN_JOBS),
+             dryrun_cells(torch, DRYRUN_MULTI_POD, "multi-pod",
+                          out / "multi", 1),
+             dryrun_cells(torch, ("dlrm-rm2/serve_p99",), "card",
+                          out / "card", 1)]
+    return d, procs, time.perf_counter()
+
+
+def phase_dryrun(torch, build, smi, dry) -> dict:
+    """Phase 16 (``dry``: ``dryrun_started``'s): the split layouts.
+    Returns this phase's kernel launches (all 0: no model step launches a
+    partitioner kernel)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_card_mesh
@@ -4941,15 +5081,16 @@ def phase_dryrun(torch, build, smi) -> dict:
     say(f"== phase 16: the split layouts and the dry-run ({smi})")
     build.reset_launches()
     card = torch.cuda.get_device_properties(0).total_memory
-    with tempfile.TemporaryDirectory() as d:
-        out = Path(d)
-        procs = [dryrun_cells(torch, DRYRUN_CELLS, "pod", out / "pod",
-                              DRYRUN_JOBS),
-                 dryrun_cells(torch, DRYRUN_MULTI_POD, "multi-pod",
-                              out / "multi", 1),
-                 dryrun_cells(torch, ("dlrm-rm2/serve_p99",), "card",
-                              out / "card", 1)]
-        logs = [proc.communicate(timeout=900)[0] for proc in procs]
+    d, procs, t_dry = dry
+    with d:
+        out = Path(d.name)
+        try:
+            logs = [proc.communicate(timeout=900)[0] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         for proc, log in zip(procs, logs):
             check(proc.returncode == 0, f"phase 16a: the dry-run exited "
                   f"{proc.returncode}:\n{log[-4000:]}")
@@ -4969,8 +5110,8 @@ def phase_dryrun(torch, build, smi) -> dict:
               and r["memory_analysis"]["argument_size_bytes"] > 0,
               f"phase 16a: {key} counted nothing")
         say_dryrun(r, card)
-    say(f"  16a {len(want)} cells in {time.perf_counter() - t_phase:.1f} s "
-        f"({DRYRUN_JOBS} processes at once)")
+    say(f"  16a {len(want)} cells in {time.perf_counter() - t_dry:.1f} s "
+        f"({DRYRUN_JOBS} processes at once, started beside phase 15)")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
@@ -4992,6 +5133,176 @@ def phase_dryrun(torch, build, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: a fabric worker of several processes
+# ---------------------------------------------------------------------------
+
+# 17a: the burst's graphs (rgg2d, avg_deg 8, seed 17), k=16, fused
+GROUP_NS = (4000, 8192, 16384, 32768, 49152, 65536)
+
+
+def start_group(fd, devices_per_mesh, server_id):
+    """The two processes of a fabric worker group on this machine's one
+    card (``--num-processes 2``, the card by default: both bind card 0),
+    registered with ``fd``: (Popens, their stderr files)."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs, errs = [], []
+    for i in range(2):
+        err = tempfile.TemporaryFile("w+")
+        errs.append(err)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.fabric", "worker",
+             "--frontdoor", f"{fd.host}:{fd.port}", "--server-id",
+             server_id, "--devices-per-mesh", str(devices_per_mesh),
+             "--heartbeat-s", "1.0", "--coordinator", coordinator,
+             "--num-processes", "2", "--process-id", str(i)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True))
+    return procs, errs
+
+
+def stop_group(procs, sig=signal.SIGTERM):
+    """Signal the live processes; their exit codes (each bounded)."""
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(sig)
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=120))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait(timeout=30))
+    return codes
+
+
+def err_text(err) -> str:
+    err.seek(0)
+    return err.read()[-3000:]
+
+
+def refused_group(fd):
+    """17b's group (two devices a mesh, both processes on card 0),
+    registered with ``fd``: (exit codes or None past 30 s, the seconds to
+    them, the processes' stderr texts)."""
+    t0 = time.perf_counter()
+    procs, errs = start_group(fd, 2, "fg2")
+    try:
+        codes = [p.wait(timeout=30) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        stop_group(procs, signal.SIGKILL)
+    return codes, time.perf_counter() - t0, [err_text(e) for e in errs]
+
+
+def phase_group(api, smi):
+    """17: (a) a fabric worker of two processes at one device a mesh, both
+    on card 0: each registers (``fg.p0``, ``fg.p1``), serves phase 8e's
+    warm-up request, then a burst of 6 requests (rgg2d ``GROUP_NS``,
+    k=16, fused) goes in at once; each answer must equal the same
+    request's in-process answer, both servers must serve, and SIGTERM
+    must end both with exit 0. (b) The same group at two devices a mesh
+    must exit 2 within 30 s naming the card both processes hold: its
+    spanning form needs two cards."""
+    from repro_torch.fabric import FabricClient, FrontDoor
+
+    say("== phase 17: a fabric worker of two processes on one card")
+    t_phase = time.perf_counter()
+    warm = api.PartitionRequest(graph=api.GraphSpec("rgg2d", 4000, 8.0,
+                                                    seed=17), k=16)
+    reqs = [api.PartitionRequest(graph=api.GraphSpec("rgg2d", n, 8.0,
+                                                     seed=17), k=16,
+                                 kernel="fused") for n in GROUP_NS]
+    with FrontDoor(port=0, lease_ttl_s=30.0) as fd:
+        t0 = time.perf_counter()
+        procs, errs = start_group(fd, 1, "fg")
+        try:
+            # the in-process answers while the group's processes start
+            want = [api.Partitioner().run(r) for r in reqs]
+            solo = time.perf_counter() - t0
+            ready = [json.loads(p.stdout.readline() or "{}") for p in procs]
+            check([r.get("server_id") for r in ready] == ["fg.p0", "fg.p1"]
+                  and all(r["runtime"]["num_processes"] == 2
+                          for r in ready),
+                  f"17a: the group did not start: {ready} "
+                  f"{[err_text(e) for e in errs]}")
+            while len(fd.status()["servers"]) < 2:
+                check(time.perf_counter() - t0 < 120,
+                      "17a: the group's servers never registered")
+                time.sleep(0.05)
+            with FabricClient(fd.host, fd.port) as client:
+                w = [f.result(timeout=600) for f in
+                     [client.submit(warm) for _ in procs]]
+                up = time.perf_counter() - t0
+                check(all(r.ok for r in w) and {r.server for r in w}
+                      == {"fg.p0", "fg.p1"},
+                      f"17a: warm-up {[r.summary() for r in w]}")
+                done = {}
+                t1 = time.perf_counter()
+                futs = []
+                for i, r in enumerate(reqs):
+                    t = time.perf_counter()
+                    futs.append(client.submit(r))
+                    futs[-1].add_done_callback(
+                        lambda f, i=i, t=t:
+                        done.__setitem__(i, time.perf_counter() - t))
+                results = [f.result(timeout=600) for f in futs]
+                wall = time.perf_counter() - t1
+        finally:
+            codes = stop_group(procs)
+    for r, req, ref in zip(results, reqs, want):
+        check(r.ok and r.attempts == 1,
+              f"17a: rgg2d n={req.graph.n}: {r.summary()}")
+        check(np.array_equal(r.assignment, ref.assignment) and r.cut ==
+              ref.cut, f"17a: the group's answer at n={req.graph.n} "
+              "differs from the in-process one")
+    served = {sid: sum(r.server == sid for r in results)
+              for sid in ("fg.p0", "fg.p1")}
+    check(all(served.values()), f"17a: a server served nothing: {served}")
+    check(codes == [0, 0], f"17a: exit codes {codes} after SIGTERM: "
+          f"{[err_text(e) for e in errs]}")
+    lat = {n: round(done[i], 3) for i, n in enumerate(GROUP_NS)}
+    say(f"  17a group of 2 processes at --devices-per-mesh 1, both on card "
+        f"0 ({smi}): fg.p0 and fg.p1 registered, up and warm after "
+        f"{up:.2f} s (the in-process runs meanwhile {solo:.2f} s); burst "
+        f"of {len(reqs)} (rgg2d n={list(GROUP_NS)}, "
+        f"k=16, fused): all ok in one attempt, bit-identical to in-process "
+        f"runs (cuts {[r.cut for r in results]}); wall {wall:.3f} s; "
+        f"latency by n (s) {json.dumps(lat)}; served {json.dumps(served)}; "
+        f"exit codes after SIGTERM {codes}")
+
+    # 17b after 17a: run beside 17a on an H100 machine, its processes
+    # took 11.8-17.8 s of the 30 s bound to exit (10.9-12.3 s alone)
+    with FrontDoor(port=0, lease_ttl_s=30.0) as fd:
+        refused_codes, took, text = refused_group(fd)
+        registered = fd.status()["servers"]
+    check(refused_codes == [2, 2] and took < 30 and not registered,
+          f"17b: exit codes {refused_codes} after {took:.1f} s, servers "
+          f"{registered}: {text}")
+    check(all("would hold card cuda:0" in t and "NCCL refuses" in t
+              for t in text), f"17b: the refusal does not name the "
+          f"shared card: {text}")
+    why = [ln for ln in text[0].splitlines() if "would hold card" in ln]
+    say(f"  17b the same group at --devices-per-mesh 2: both "
+        f"processes exit 2 after {took:.2f} s, nothing registered: "
+        f"{why[0]}")
+    say("  17b the spanning form (one server whose meshes span the group) "
+        "needs two cards, and this machine has one: it is held on the CPU "
+        "only (tests/test_torch_fabric_group.py, "
+        "tests/test_torch_dist_serving.py)")
+    say(f"  phase 17 {time.perf_counter() - t_phase:.1f} s")
+
+
+def group_only(torch, api, build) -> int:
+    """``--group-only``: phases 1 and 17."""
+    smi = phase_environment(torch, build)
+    phase_group(api, smi)
+    say(smi)
+    return 0
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -5002,7 +5313,7 @@ def free_port() -> int:
 def dryrun_only(torch, build) -> int:
     """``--dryrun-only``: phases 1 and 16."""
     smi = phase_environment(torch, build)
-    phase_dryrun(torch, build, smi)
+    phase_dryrun(torch, build, smi, dryrun_started(torch))
     say(smi)
     return 0
 
@@ -5010,7 +5321,7 @@ def dryrun_only(torch, build) -> int:
 def analysis_only(torch, build) -> int:
     """``--analysis-only``: phases 1 and 15."""
     smi = phase_environment(torch, build)
-    phase_analysis(build)
+    phase_analysis(build, analysis_started())
     say(smi)
     return 0
 
@@ -5050,8 +5361,9 @@ def mesh_only(torch, api, build) -> int:
     g = api.GraphSpec("rgg2d", FULL_N, 8.0, seed=17).materialize()
     lp_run = run_partition(api, g, 16, "fused")
     say(f"  phase 4's request: cut {lp_run.cut}")
+    selftest = selftest_started()
     rows, _, walls = phase_dist(torch, api, build, g)
-    phase_mesh(torch, api, g, lp_run, *walls)
+    phase_mesh(torch, api, g, lp_run, *walls, selftest)
     say(smi)
     say(json.dumps({"kernels": rows}))
     return 0
@@ -5080,9 +5392,22 @@ def train_only(torch, api, build) -> int:
 def lm_only(torch, build) -> int:
     """``--lm-only``: phases 1 and 13."""
     smi = phase_environment(torch, build)
-    phase_lm(torch, build)
+    phase_lm(torch, build, lm_cli_started())
     say(smi)
     return 0
+
+
+class Lap:
+    """Prints the seconds since the last lap (or since it was made) as
+    phase ``n``'s, for the phases that print no time of their own."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, n):
+        now = time.perf_counter()
+        say(f"  phase {n} {now - self.t:.1f} s")
+        self.t = now
 
 
 def main(argv=None) -> int:
@@ -5117,6 +5442,9 @@ def main(argv=None) -> int:
                          "contract line)")
     ap.add_argument("--dryrun-only", action="store_true",
                     help="only build the kernels and run phase 16 (no "
+                         "contract line)")
+    ap.add_argument("--group-only", action="store_true",
+                    help="only build the kernels and run phase 17 (no "
                          "contract line)")
     args = ap.parse_args(argv)
 
@@ -5163,11 +5491,17 @@ def main(argv=None) -> int:
         return analysis_only(torch, build)
     if args.dryrun_only:
         return dryrun_only(torch, build)
+    if args.group_only:
+        return group_only(torch, api, build)
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
+    lap = Lap()
     smi = phase_environment(torch, build)
+    lap(1)
     phase_ragged(torch, dev)
+    lap(2)
     phase_anchor(torch, api, deep_mgp)
+    lap(3)
     capture = Capture(torch)
     candidates = []
     capture.wrap(lp_ops, "lp_move_chunk", "lp_move",
@@ -5185,32 +5519,46 @@ def main(argv=None) -> int:
             torch, api, build, candidates, seg_calls)
     finally:
         capture.restore()
+    lap(4)
     assignment = lp_run.assignment
     kernels = phase_kernels(torch, build, capture, launches, g, assignment,
                             dev)
+    lap(5)
     kernels += phase_off_main(torch, build, g, assignment, dev)
+    lap(6)
     by_path, un_run, un_wall = phase_unconstrained(
         torch, api, build, g, lp_run, lp_wall, launches)
+    lap(7)
     stacked_row, serve_paths = phase_serving(torch, api, build, g, lp_run,
                                              lp_wall, un_run, un_wall,
                                              by_path)
+    lap(8)
     by_path.update(serve_paths)
     kernels.insert(1, stacked_row)
     hub_rows, hub_paths = phase_hubs(torch, api, build)
+    lap(9)
     by_path.update(hub_paths)
     kernels[2:2] = hub_rows
+    selftest = selftest_started()
     dist_rows, dist_paths, dist_walls = phase_dist(torch, api, build, g)
+    lap(10)
     by_path.update(dist_paths)
     kernels[4:4] = dist_rows
-    by_path["mesh"] = phase_mesh(torch, api, g, lp_run, *dist_walls)
+    by_path["mesh"] = phase_mesh(torch, api, g, lp_run, *dist_walls,
+                                 selftest)
+    lm = lm_cli_started()
     by_path["placement"], g_placed, plan = phase_models(torch, api, build,
                                                         g)
-    by_path["lm"] = phase_lm(torch, build)
+    clis = train_clis_started()       # 14e, beside phase 13
+    by_path["lm"] = phase_lm(torch, build, lm)
+    ana = analysis_started()          # phase 15, beside phase 14
     by_path["train"] = phase_train(torch, build, smi, g_placed, plan,
-                                   by_path["placement"])
+                                   by_path["placement"], clis=clis)
     del g_placed, plan
-    by_path["analysis"] = phase_analysis(build)
-    by_path["dryrun"] = phase_dryrun(torch, build, smi)
+    dry = dryrun_started(torch)
+    by_path["analysis"] = phase_analysis(build, ana)
+    by_path["dryrun"] = phase_dryrun(torch, build, smi, dry)
+    phase_group(api, smi)
     for row in kernels:
         if row["name"] in MAIN_PATH + ("lp_move_stacked", "lp_move_heavy",
                                        "bal_scores_heavy") + tuple(

@@ -16,7 +16,9 @@ for the mesh's life, each joined to its own group of P through
 ``distributed_init`` (NCCL on its card, gloo for CPU ranks). The process
 that owns the mesh sends each call to every rank and reads the answers
 back; it never takes part in the collectives, so one process can own
-several meshes. Nothing here touches a device at import.
+several meshes. A mesh of a fabric worker that spans a group of
+processes (``api.group``) may have ranks that another process of the
+group hosts. Nothing here touches a device at import.
 """
 from __future__ import annotations
 
@@ -37,21 +39,22 @@ def device_count() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
-def device_slices(num_slices: int, devices_per_slice: int) -> List[list]:
-    """Carve this process's CUDA devices into ``num_slices`` disjoint
-    contiguous slices of ``devices_per_slice`` devices each (the serving
-    tier's worker meshes: one server per device group).
+def carve(pool: Sequence, num_slices: int,
+          devices_per_slice: int) -> List[list]:
+    """``num_slices`` disjoint contiguous slices of ``devices_per_slice``
+    entries of ``pool`` each, in its order: the carve of
+    ``device_slices``, over this process's cards or over a group's
+    (``api.group.GroupOwner.carve``).
 
-    Raises ``RuntimeError`` when the process does not have ``num_slices *
-    devices_per_slice`` devices — oversubscribing a device into two
+    Raises ``RuntimeError`` when the pool holds fewer than ``num_slices *
+    devices_per_slice`` entries — oversubscribing a device into two
     meshes would serialize their work against each other, which is
     exactly what a multi-mesh tier exists to avoid."""
     if num_slices < 1 or devices_per_slice < 1:
         raise ValueError(
             "need num_slices >= 1 and devices_per_slice >= 1, got "
             f"{num_slices} x {devices_per_slice}")
-    import torch
-    have = device_count()
+    have = len(pool)
     need = num_slices * devices_per_slice
     if have < need:
         # name the shortfall AND the largest feasible carve, both ways
@@ -74,9 +77,19 @@ def device_slices(num_slices: int, devices_per_slice: int) -> List[list]:
             f"cannot carve {num_slices} slice(s) of {devices_per_slice} "
             f"device(s) ({need} total): only {have} device(s) "
             f"available; {hint}")
-    devs = [torch.device("cuda", i) for i in range(need)]
-    return [devs[i * devices_per_slice:(i + 1) * devices_per_slice]
+    pool = list(pool)
+    return [pool[i * devices_per_slice:(i + 1) * devices_per_slice]
             for i in range(num_slices)]
+
+
+def device_slices(num_slices: int, devices_per_slice: int) -> List[list]:
+    """Carve this process's CUDA devices into ``num_slices`` disjoint
+    contiguous slices of ``devices_per_slice`` devices each (the serving
+    tier's worker meshes: one server per device group); ``carve``
+    raises when the process has too few."""
+    import torch
+    return carve([torch.device("cuda", i) for i in range(device_count())],
+                 num_slices, devices_per_slice)
 
 
 def distributed_init(coordinator_address: Optional[str] = None,
@@ -243,11 +256,14 @@ def strip_timings(trace) -> list:
             for r in trace]
 
 
-def _pack(obj) -> tuple:
+def _pack(obj, shm: bool = True) -> tuple:
     """``obj`` as a pipe message: pickled (protocol 5) with its large
     array buffers out of band, in one shared-memory block whose reader
-    unlinks it (``_unpack``)."""
+    unlinks it (``_unpack``). ``shm=False`` keeps every buffer in band,
+    for a reader on another host."""
     from multiprocessing import resource_tracker, shared_memory
+    if not shm:
+        return pickle.dumps(obj, protocol=5), None, ()
     big: list = []
 
     def in_band(buf) -> bool:
@@ -302,6 +318,21 @@ def _unlink(msg: tuple) -> None:
     shm.unlink()
 
 
+def _wait_closed(conn, sentinel, deadline: float) -> None:
+    """Read ``conn`` until it ends, its host's ``sentinel`` is ready or
+    ``deadline`` passes."""
+    from multiprocessing.connection import wait as mp_wait
+    while True:
+        left = deadline - time.monotonic()
+        if left <= 0 or not mp_wait([conn, sentinel], timeout=left) or \
+                sentinel.poll():
+            return
+        try:
+            conn.recv()
+        except (EOFError, OSError):
+            return
+
+
 def _digest(obj) -> str:
     return hashlib.sha256(pickle.dumps(obj)).hexdigest()
 
@@ -315,9 +346,12 @@ def _error_payload(exc: BaseException) -> tuple:
             "".join(traceback.format_exception(exc))[-4000:], blob)
 
 
-def _mesh_rank(conn, addr: str, P: int, rank: int, device: str) -> None:
+def _mesh_rank(conn, addr: str, P: int, rank: int, device: str,
+               shm: bool = True) -> None:
     """A mesh's rank process: join the group, say ready, then run every
-    call the owner sends until it says close or goes away."""
+    call the owner sends until it says close or goes away. ``shm``: the
+    owner shares this host (its answer's buffers may go through a
+    shared-memory block)."""
     try:
         import torch
         dev = torch.device(device)
@@ -356,7 +390,7 @@ def _mesh_rank(conn, addr: str, P: int, rank: int, device: str) -> None:
                 if isinstance(out, RankOutput) else (out, None)
             launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
             reply = ("ok", _digest(value), launches, elapsed,
-                     _pack((value, local)) if rank == 0 else None)
+                     _pack((value, local), shm) if rank == 0 else None)
         except Exception as exc:
             reply = ("error", _error_payload(exc))
         try:
@@ -383,19 +417,34 @@ class PeMesh:
     ``MeshFailure``. Array buffers of 1 MiB and more (a ``Graph``'s
     arrays, an assignment) travel through a shared-memory block, the
     rest of a call and its answer through the pipe.
+
+    With ``group`` (the ``api.group.GroupOwner`` of a fabric worker that
+    spans processes), ``devices`` are the group's ``GroupCard``s and a
+    rank whose card another process owns is spawned by that process: it
+    reaches this one through the group's listener in place of a pipe,
+    its buffers travel in band, the mesh group's address is the host of
+    the mesh's rank 0, and its death shows through its connection and
+    through its host's (``HostLink.sentinel``).
     """
 
     axis_names = ("pe",)      # a 1-D mesh, as ``dist/sharding.py`` reads it
 
-    def __init__(self, devices: Sequence, wait: bool = True):
+    def __init__(self, devices: Sequence, wait: bool = True, group=None):
         import multiprocessing as mp
 
         import torch
-        devs = [torch.device(d) for d in devices]
+        devices = list(devices)
+        # each rank's host: None for a child of this process
+        self._links = [None] * len(devices) if group is None else \
+            [None if c.process == group.process else group.link(c.process)
+             for c in devices]
+        devs = [torch.device(d if group is None else d.device)
+                for d in devices]
         if not devs:
             raise ValueError("a mesh needs at least one device")
         kinds = {d.type for d in devs}
-        if kinds == {"cuda"}:
+        # a group's cards are its carve's to check (``check_cards``)
+        if group is None and kinds == {"cuda"}:
             idx = [d.index for d in devs]
             if None in idx or len(set(idx)) != len(idx):
                 raise ValueError(
@@ -407,7 +456,7 @@ class PeMesh:
                     f"a mesh over {[str(d) for d in devs]} needs card "
                     f"{max(idx)}, and only {device_count()} card(s) are "
                     "visible; carve meshes with device_slices")
-        elif kinds != {"cpu"}:
+        if kinds not in ({"cuda"}, {"cpu"}):
             raise ValueError(
                 "a mesh's devices are all cards or all the CPU, got "
                 f"{[str(d) for d in devs]}")
@@ -429,19 +478,36 @@ class PeMesh:
         self.launches: List[Dict[str, int]] = [{} for _ in devs]
         self.backend: Optional[str] = None
         self.pids: List[int] = []
+        self._group = group
+        self._key = os.urandom(8).hex()        # the mesh, to its hosts
         ctx = mp.get_context("spawn")
-        addr = f"127.0.0.1:{_free_port()}"
-        self._conns, self._procs = [], []
-        for r, d in enumerate(devs):
-            parent, child = ctx.Pipe()
-            proc = ctx.Process(
-                target=_mesh_rank, daemon=True,
-                name=f"repro-torch-mesh-rank{r}",
-                args=(child, addr, self.size, r, str(d)))
-            proc.start()
-            child.close()
-            self._conns.append(parent)
-            self._procs.append(proc)
+        self._conns: list = []
+        self._procs: list = []
+        try:
+            # the group's address: the host of the mesh's rank 0
+            if self._links[0] is None:
+                host = "127.0.0.1" if group is None else group.host
+                addr = f"{host}:{_free_port()}"
+            else:
+                addr = self._links[0].mesh_address()
+            for r, d in enumerate(devs):
+                link = self._links[r]
+                if link is not None:
+                    link.spawn(self._key, r, self.size, addr, str(d))
+                    self._conns.append(None)    # it dials in
+                    self._procs.append(None)
+                    continue
+                parent, child = ctx.Pipe()
+                proc = ctx.Process(
+                    target=_mesh_rank, daemon=True,
+                    name=f"repro-torch-mesh-rank{r}",
+                    args=(child, addr, self.size, r, str(d)))
+                proc.start()
+                child.close()
+                self._conns.append(parent)
+                self._procs.append(proc)
+        except MeshFailure as exc:
+            self._fail(str(exc))
         if wait:
             self.wait_ready()
 
@@ -470,7 +536,16 @@ class PeMesh:
                 return self
             if not self._alive:
                 raise MeshFailure(f"the mesh is closed: {self.failure}")
-            msgs = self._collect("start", timeout=MESH_START_TIMEOUT_S)
+            deadline = time.monotonic() + MESH_START_TIMEOUT_S
+            for r, link in enumerate(self._links):
+                if link is not None and self._conns[r] is None:
+                    try:
+                        self._conns[r] = self._group.rank_connection(
+                            self._key, r, link, deadline)
+                    except MeshFailure as exc:
+                        self._fail(str(exc))
+            msgs = self._collect(
+                "start", timeout=max(0.0, deadline - time.monotonic()))
             bad = {r: m for r, m in msgs.items() if m[0] != "ready"}
             if bad:
                 r, m = sorted(bad.items())[0]
@@ -495,11 +570,17 @@ class PeMesh:
             if not self._alive:
                 raise MeshFailure(f"the mesh is closed: {self.failure}")
             t0 = time.perf_counter()
-            packed = _pack((fn, args, kwargs))
+            # one message for the ranks on this host (buffers in a
+            # shared-memory block), one for the others (in band)
+            call = (fn, args, kwargs)
+            packed = _pack(call) if None in self._links else None
+            in_band = _pack(call, shm=False) \
+                if any(self._links) else None
             try:
                 for r, conn in enumerate(self._conns):
                     try:
-                        conn.send(("call", packed))
+                        conn.send(("call", in_band if self._links[r]
+                                   else packed))
                     except (OSError, EOFError):
                         self._fail(f"rank {r} of the mesh is gone "
                                    f"({self._exit_text(r)})")
@@ -507,7 +588,8 @@ class PeMesh:
                 ok = msgs[0][0] == "ok"
                 reply = _unpack(msgs[0][4]) if ok else None
             finally:
-                _unlink(packed)
+                if packed is not None:
+                    _unlink(packed)
             seconds = time.perf_counter() - t0
             self.calls += 1
         if ok:
@@ -568,7 +650,7 @@ class PeMesh:
         got: Dict[int, tuple] = {}
         start = time.monotonic()
         deadline = None if timeout is None else start + timeout
-        sentinels = {p.sentinel: r for r, p in enumerate(self._procs)}
+        sentinels = {self._sentinel(r): r for r in range(self.size)}
         try:
             self._wait_all(what, pending, got, sentinels, start, deadline)
         except MeshFailure:
@@ -614,7 +696,16 @@ class PeMesh:
                     deadline = grace if deadline is None else \
                         min(deadline, grace)
 
+    def _sentinel(self, r: int):
+        """What becomes ready when rank ``r`` is gone: its process's
+        sentinel, or its host's (a rank dies with its host)."""
+        link = self._links[r]
+        return self._procs[r].sentinel if link is None else link.sentinel
+
     def _exit_text(self, r: int) -> str:
+        link = self._links[r]
+        if link is not None:
+            return link.describe()
         proc = self._procs[r]
         proc.join(timeout=1.0)
         code = proc.exitcode
@@ -633,13 +724,22 @@ class PeMesh:
             if self._alive:
                 self._alive = False
                 self.failure = detail
+        self._kill_ranks()
         for proc in self._procs:
-            if proc.is_alive():
-                proc.kill()
-        for proc in self._procs:
-            proc.join(timeout=10.0)
+            if proc is not None:
+                proc.join(timeout=10.0)
         for conn in self._conns:
-            conn.close()
+            if conn is not None:
+                conn.close()
+
+    def _kill_ranks(self) -> None:
+        """SIGKILL every rank: this process's children itself, the
+        others through their hosts."""
+        for proc, link in zip(self._procs, self._links):
+            if link is not None:
+                link.end(self._key, 0.0)
+            elif proc.is_alive():
+                proc.kill()
 
     def kill(self) -> None:
         """SIGKILL every rank now. A call in flight fails with
@@ -649,9 +749,7 @@ class PeMesh:
             if self._alive:
                 self._alive = False
                 self.failure = "the mesh was killed"
-        for proc in self._procs:
-            if proc.is_alive():
-                proc.kill()
+        self._kill_ranks()
         if self._lock.acquire(timeout=0):
             try:
                 self._teardown("the mesh was killed")
@@ -674,12 +772,21 @@ class PeMesh:
                     was_alive = True
             if was_alive:
                 for conn in self._conns:
+                    if conn is None:
+                        continue            # a rank that never dialed in
                     try:
                         conn.send(("close",))
                     except (OSError, EOFError):
                         pass
+                deadline = time.monotonic() + 30.0
                 for proc in self._procs:
-                    proc.join(timeout=30.0)
+                    if proc is not None:
+                        proc.join(timeout=30.0)
+                # a rank of another process is gone once its connection
+                # ends (or its host is)
+                for conn, link in zip(self._conns, self._links):
+                    if link is not None and conn is not None:
+                        _wait_closed(conn, link.sentinel, deadline)
             self._teardown(self.failure)
         finally:
             self._lock.release()
@@ -705,13 +812,14 @@ def mesh_devices(P: int, device=None) -> list:
     return device_slices(1, P)[0]
 
 
-def spawn_meshes(slices: Sequence[Sequence]) -> List[PeMesh]:
+def spawn_meshes(slices: Sequence[Sequence], group=None) -> List[PeMesh]:
     """One ``PeMesh`` a device slice, all spawned at once; if one fails
-    to start, every mesh is closed and the failure raised."""
+    to start, every mesh is closed and the failure raised. ``group``: a
+    ``GroupOwner`` whose cards the slices hold (``PeMesh``)."""
     meshes: List[PeMesh] = []
     try:
         for devs in slices:
-            meshes.append(PeMesh(devs, wait=False))
+            meshes.append(PeMesh(devs, wait=False, group=group))
         for m in meshes:
             m.wait_ready()
     except BaseException:

@@ -50,6 +50,14 @@ class FabricWorker:
     device:
         The torch device the constructed server runs on: the card by
         default (raising without one), ``"cpu"`` on purpose.
+    process_id:
+        This worker's process in a group of workers of one device a mesh
+        (``launch/fabric.py worker --num-processes N``): a given
+        ``server_id`` S registers as ``S.p<process_id>``, so that the
+        group's ids stay distinct.
+    group:
+        The ``api.group.GroupOwner`` of a worker whose meshes span a
+        group of processes (passed on to the constructed server).
     heartbeat_s:
         Lease-renewal cadence. Keep it a small fraction of the front
         door's lease TTL so one dropped beat doesn't expire the lease.
@@ -69,7 +77,11 @@ class FabricWorker:
         server=None,
         max_queue: int = 1024,
         device=None,
+        process_id: Optional[int] = None,
+        group=None,
     ):
+        if server_id is not None and process_id is not None:
+            server_id = f"{server_id}.p{process_id}"
         self.server_id = server_id or f"worker-{os.getpid()}"
         self._frontdoor = frontdoor
         self._heartbeat_s = heartbeat_s
@@ -82,6 +94,7 @@ class FabricWorker:
                 backend=backend,
                 max_queue=max_queue,
                 device=device,
+                group=group,
             )
         self._server = server
         self.devices_per_mesh = getattr(server, "devices_per_mesh", 1)

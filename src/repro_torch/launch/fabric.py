@@ -12,6 +12,12 @@
   python -m repro_torch.launch.fabric worker --frontdoor 127.0.0.1:7070 \
       --meshes 1 --devices-per-mesh 2
 
+  # a group of N worker processes (one card each; gloo and the CPU with
+  # --device cpu), process I of N started with:
+  python -m repro_torch.launch.fabric worker --frontdoor 127.0.0.1:7070 \
+      --coordinator 127.0.0.1:7071 --num-processes N --process-id I \
+      [--devices-per-mesh P]
+
   # anywhere: fleet status as JSON
   python -m repro_torch.launch.fabric status --frontdoor 127.0.0.1:7070
 
@@ -24,10 +30,24 @@ in-flight work finishes, queued tickets resolve ``server_closed``.
 A worker takes ``--coordinator host:port --num-processes N
 --process-id I`` (or the ``REPRO_COORDINATOR`` etc. environment
 variables) for ``repro_torch.api.runtime.distributed_init``: one process
-is a no-op. A worker that joins such a group of several processes (a
-server spanning hosts) is not ported yet (ROADMAP queue 1, item 5): it
-exits 2. Its meshes need no group of its own: ``--devices-per-mesh P``
-spawns the ranks of each mesh.
+is a no-op. The group is a rendezvous (``repro_torch.api.group``):
+
+* at ``--devices-per-mesh 1`` every process is a whole worker on its own
+  card, with its own port and registration; a given ``--server-id S``
+  registers as ``S.p<I>``;
+* above one the group is one server: process 0 pools the group's cards
+  (one a process, in process order), carves ``--meshes`` slices of P from
+  them and registers once (``devices=P``); its ready line adds
+  ``processes`` and ``cards``. Every other process hosts the ranks of
+  the meshes on its card, prints a ``rank-host`` ready line once process
+  0 has taken it in, and never registers. A carve that does not fit, or
+  a mesh that would hold one card twice, exits 2. SIGTERM to process 0
+  drains it and ends the whole group (exit 0 everywhere); a rank host
+  that ends fails the meshes with a rank on it, and process 0 serves on
+  with the others; a rank host whose process 0 ends exits 1.
+
+A worker of one process needs no group for its meshes:
+``--devices-per-mesh P`` spawns the ranks of each mesh.
 """
 
 from __future__ import annotations
@@ -82,43 +102,77 @@ def _run_frontdoor(args) -> int:
 
 
 def _run_worker(args) -> int:
-    from repro_torch.api import runtime
+    from torch.distributed import DistError
+
+    from repro_torch.api import group, runtime
     from repro_torch.fabric import FabricWorker
     from repro_torch.kernels.dispatch import NoCudaDevice
 
-    procs = args.num_processes or int(
-        os.environ.get("REPRO_NUM_PROCESSES") or 1)
-    if procs > 1:
-        print(f"fabric worker: a worker that joins a group of {procs} "
-              "processes (one server across hosts) is not ported to "
-              "repro_torch yet (ROADMAP queue 1, item 5); "
-              "--devices-per-mesh P spawns a worker's meshes itself",
-              file=sys.stderr)
-        return 2
+    owner = None
     try:
         # the multi-process group first (a no-op for one process)
-        info = runtime.distributed_init(
-            coordinator_address=args.coordinator,
-            num_processes=args.num_processes, process_id=args.process_id)
+        try:
+            info = runtime.distributed_init(
+                coordinator_address=args.coordinator,
+                num_processes=args.num_processes,
+                process_id=args.process_id, device=args.device,
+                timeout_s=runtime.MESH_START_TIMEOUT_S)
+        except DistError as exc:        # a store that timed out
+            n = args.num_processes or os.environ.get("REPRO_NUM_PROCESSES")
+            raise RuntimeError(
+                f"the group of {n} process(es) did not form within "
+                f"{runtime.MESH_START_TIMEOUT_S:.0f} s: {exc}") from None
+        procs, pid = info["num_processes"], info["process_id"]
+        spanning = procs > 1 and args.devices_per_mesh > 1
+        if spanning and pid > 0:
+            return _run_rank_host(group.RankHost(info), info)
+        if spanning:
+            coord = args.coordinator or os.environ["REPRO_COORDINATOR"]
+            owner = group.GroupOwner.start(info, coord.rpartition(":")[0])
+        else:
+            group.leave()
         worker = FabricWorker(
             frontdoor=args.frontdoor, host=args.host, port=args.port,
             server_id=args.server_id, meshes=args.meshes,
             devices_per_mesh=args.devices_per_mesh, backend=args.backend,
             heartbeat_s=args.heartbeat_s, max_queue=args.max_queue,
-            device=args.device)
+            device=args.device,
+            process_id=pid if procs > 1 and not spanning else None,
+            group=owner)
     except NoCudaDevice as exc:
         print(f"fabric worker: no CUDA device ({exc}); pass --device cpu "
               "to run on the CPU", file=sys.stderr)
         return 2
-    except RuntimeError as exc:     # too few cards, a mesh's start
+    except RuntimeError as exc:     # too few cards, a mesh's start, the group
+        if owner is not None:
+            owner.close(2, str(exc))
         print(f"fabric worker: {exc}", file=sys.stderr)
         return 2
     worker.install_signal_handlers()
+    extra = {} if owner is None else {
+        "processes": owner.num_processes,
+        "cards": [c._asdict() for c in owner.cards]}
     _ready("worker", server_id=worker.server_id, host=worker.host,
            port=worker.port, meshes=worker.meshes,
-           devices=worker.devices_per_mesh, runtime=info)
+           devices=worker.devices_per_mesh, runtime=info, **extra)
     worker.wait()
+    if owner is not None:
+        owner.close(0, "process 0 stopped")
     return 0
+
+
+def _run_rank_host(host, info: dict) -> int:
+    """A process I > 0 of a group whose meshes span it: host their ranks
+    on this process's card until process 0 ends the group."""
+    signal.signal(signal.SIGTERM, lambda *a: host.stop())
+    signal.signal(signal.SIGINT, lambda *a: host.stop())
+    _ready("rank-host", process_id=host.process,
+           num_processes=info["num_processes"], host=host.host,
+           device=host.card.device, pid=os.getpid())
+    code, reason = host.serve()
+    if code:
+        print(f"fabric worker: {reason}", file=sys.stderr)
+    return code
 
 
 def _run_status(args) -> int:
@@ -168,8 +222,9 @@ def main(argv=None) -> int:
                     help="torch device of the worker's server (default: "
                          "the card; 'cpu' on purpose)")
     wp.add_argument("--coordinator", default=None,
-                    help="multi-process coordinator HOST:PORT (a worker "
-                         "of more than one process is not ported yet)")
+                    help="the group's coordinator HOST:PORT (process 0 "
+                         "listens there): a worker of --num-processes "
+                         "processes")
     wp.add_argument("--num-processes", type=int, default=None)
     wp.add_argument("--process-id", type=int, default=None)
     wp.set_defaults(run=_run_worker)

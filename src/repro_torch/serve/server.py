@@ -398,6 +398,10 @@ class PartitionServer:
     device:
         The torch device every worker runs on: the card by default
         (raising without one), ``"cpu"`` on purpose.
+    group:
+        The ``api.group.GroupOwner`` of a fabric worker that spans a
+        group of processes: its meshes are carved from the group's cards
+        (``GroupOwner.carve``) and their ranks run where the cards are.
     """
 
     def __init__(
@@ -413,6 +417,7 @@ class PartitionServer:
         graph_cache_size: int = 64,
         stack: str = "auto",
         device=None,
+        group=None,
     ):
         if meshes < 1:
             raise ValueError(f"meshes must be >= 1, got {meshes}")
@@ -446,11 +451,13 @@ class PartitionServer:
         mesh_objs = [None] * meshes
         if devices_per_mesh > 1:
             # disjoint device slices, one mesh of rank processes each
-            if self.device.type == "cpu":
+            if group is not None:
+                slices = group.carve(meshes, devices_per_mesh)
+            elif self.device.type == "cpu":
                 slices = [[self.device] * devices_per_mesh] * meshes
             else:
                 slices = device_slices(meshes, devices_per_mesh)
-            mesh_objs = spawn_meshes(slices)
+            mesh_objs = spawn_meshes(slices, group)
         self._workers = [
             _Worker(i, devices_per_mesh, mesh_objs[i], backend, self)
             for i in range(meshes)

@@ -283,3 +283,48 @@ def test_fabric_worker_of_two_rank_meshes_serves_a_solo_answer(
                 proc.kill()
                 proc.wait()
     assert proc.returncode == 0
+
+
+def test_fabric_group_of_two_processes_spans_one_mesh_of_two(
+        results, limit, tmp_path):
+    """A worker of two processes at two devices a mesh is one server:
+    process 0 registers it (``devices=2``), process 1 hosts the mesh's
+    rank 1, and its answers are the reference's; SIGTERM to process 0
+    ends both with exit 0."""
+    from repro_torch.fabric import FabricClient, FrontDoor, status_of
+    ref, _ = results
+    with FrontDoor(lease_ttl_s=5.0) as fd:
+        procs = torch_dist_jobs.fabric_group(fd, 2, 2, "span2", str(tmp_path))
+        limit.extend(procs)
+        try:
+            ready = [json.loads(p.stdout.readline() or "{}") for p in procs]
+            assert ready[0]["server_id"] == "span2"
+            assert ready[0]["devices"] == 2 and ready[0]["processes"] == 2
+            assert [c["process"] for c in ready[0]["cards"]] == [0, 1]
+            assert ready[1]["role"] == "rank-host"
+            assert ready[1]["process_id"] == 1
+            t_end = time.monotonic() + 60
+            while time.monotonic() < t_end and \
+                    not status_of(fd.host, fd.port)["servers"]:
+                time.sleep(0.1)
+            (srv,) = status_of(fd.host, fd.port)["servers"]
+            assert srv["server_id"] == "span2" and srv["devices"] == 2
+            with FabricClient(fd.host, fd.port) as client:
+                futs = [client.submit(r) for r in (_req(2), _req(5))]
+                rs = [f.result(timeout=300) for f in futs]
+        finally:
+            procs[0].send_signal(signal.SIGTERM)
+            codes = []
+            for p in procs:
+                try:
+                    codes.append(p.wait(timeout=60))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    codes.append(("killed", p.wait()))
+    for r, i in zip(rs, (2, 5)):
+        want = ref["server"]["results"][i]
+        assert r.ok and r.server == "span2"
+        assert np.array_equal(r.assignment, want["part"])
+        assert r.cut == want["cut"] == CUTS[i]
+    assert codes == [0, 0], [(tmp_path / f"p{i}.err").read_text()[-2000:]
+                             for i in range(2)]

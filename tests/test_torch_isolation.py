@@ -208,20 +208,27 @@ def test_modules_walked_include_the_fabric():
 
 def test_fabric_worker_cli_refuses_without_cuda_and_dist():
     """The worker CLI runs on the card by default: without one it exits
-    2 and prints no ready line, with meshes of one or two cards alike;
-    so does a worker that joins a group of several processes, which is
-    not ported yet."""
+    2 and prints no ready line, with meshes of one or two cards alike,
+    and so does a worker that joins a group of several processes (before
+    it joins)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.fabric", "worker"]
     for extra, text in (([], "no CUDA device"),
                         (["--devices-per-mesh", "2"], "no CUDA device"),
-                        (["--device", "cpu", "--coordinator", "h:1",
-                          "--num-processes", "2", "--process-id", "0"],
-                         "ROADMAP queue 1, item 5")):
+                        (["--coordinator", "h:1", "--num-processes", "2",
+                          "--process-id", "0", "--devices-per-mesh", "2"],
+                         "no CUDA device")):
         out = subprocess.run(cmd + extra, cwd=ROOT, env=env,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 2 and out.stdout == ""
         assert text in out.stderr
+
+
+def test_modules_walked_include_the_fabric_group():
+    mods = _modules()
+    for m in ("repro_torch.api.group", "repro_torch.launch.fabric",
+              "repro_torch.fabric.worker"):
+        assert m in mods
 
 
 def test_modules_walked_include_the_mesh_tier():

@@ -478,6 +478,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def fabric_group(frontdoor, n, devices_per_mesh, server_id, err_dir,
+                 meshes=1):
+    """Start the ``n`` processes of a fabric worker group (``python -m
+    repro_torch.launch.fabric worker --num-processes n``, ``--device cpu``
+    over gloo, no card visible) registered with ``frontdoor``: their
+    ``Popen``s, process 0 first, each reading its stdout (the ready line)
+    and writing its stderr to ``err_dir/p<I>.err``."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = []
+    for i in range(n):
+        with open(os.path.join(err_dir, f"p{i}.err"), "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.fabric",
+                 "worker", "--frontdoor", f"{frontdoor.host}:"
+                 f"{frontdoor.port}", "--server-id", server_id,
+                 "--meshes", str(meshes), "--devices-per-mesh",
+                 str(devices_per_mesh), "--device", "cpu",
+                 "--heartbeat-s", "0.3", "--coordinator", coordinator,
+                 "--num-processes", str(n), "--process-id", str(i)],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True))
+    return procs
+
+
 def loaded_reference_modules(pe):
     """On a mesh's rank: the JAX modules and the reference's it loaded."""
     return sorted(m for m in sys.modules if m in ("jax", "repro")
