@@ -217,7 +217,8 @@ exits non-zero if any one fails:
      zeroed just before); (b) GAT at
      its full CONFIG on the placed graph, held (rtol = atol = 1e-5) to
      its forward on the input read through ``perm``, and on the
-     full_graph_sm shape to its CPU forward; (c) SchNet, NequIP and
+     full_graph_sm shape to its CPU forward, and each of the two to the
+     CPU's float64 forward; (c) SchNet, NequIP and
      DimeNet at full CONFIG on the molecule shape (128 graphs x 30 atoms
      bonded along their 64 closest pairs), held to their CPU forwards
      (1e-5, 1e-4, 1e-4), NequIP also under a random rotation; (d) DLRM
@@ -3673,16 +3674,45 @@ def gat_on_placement(torch, g, plan, dev):
     snd = np.concatenate([p[:, 0], p[:, 1]])
     rcv = np.concatenate([p[:, 1], p[:, 0]])
     x = rng.standard_normal((n + 1, cfg.d_in)).astype(np.float32)
-    card = gat.forward(params, gat_batch(
-        torch.as_tensor(snd, device=dev), torch.as_tensor(rcv, device=dev),
-        n, torch.as_tensor(x, device=dev)), cfg)
-    cpu = gat.forward(to_cpu(params), gat_batch(
-        torch.from_numpy(snd), torch.from_numpy(rcv), n,
-        torch.from_numpy(x)), cfg)
-    err = held(torch, "gat full_graph_sm", card, cpu, MODEL_TOL["gat-cora"])
+
+    def forward(device, dtype=torch.float32):
+        return gat.forward(
+            {k: v.to(device=device, dtype=dtype) for k, v in params.items()},
+            gat_batch(torch.as_tensor(snd, device=device),
+                      torch.as_tensor(rcv, device=device), n,
+                      torch.as_tensor(x, device=device).to(dtype)),
+            cfg).detach().cpu()
+
+    # the card and the CPU in float32, each also held to the CPU's float64
+    # forward (the exact answer to far below the tolerance), so a failure
+    # names the side that left it; a second forward on each side tells a
+    # fault that repeats from one that does not
+    tol = MODEL_TOL["gat-cora"]
+    card, cpu, exact = forward(dev), forward("cpu"), forward("cpu",
+                                                             torch.float64)
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    def near(a, b):
+        return torch.allclose(a.double(), b.double(), rtol=tol, atol=tol)
+
+    check(card.shape == cpu.shape == (n + 1, cfg.n_classes)
+          and bool(torch.isfinite(card).all()),
+          f"gat full_graph_sm: shape {tuple(card.shape)} or values not "
+          "finite")
+    err = gap(card, cpu)
+    if not (near(card, cpu) and near(card, exact) and near(cpu, exact)):
+        again = [gap(forward(d), exact) for d in (dev, "cpu")]
+        check(False, f"gat full_graph_sm: differs beyond rtol = atol = "
+              f"{tol}: card from the CPU {err:.3e}, from the float64 "
+              f"forward card {gap(card, exact):.3e} and CPU "
+              f"{gap(cpu, exact):.3e}; a second forward: card "
+              f"{again[0]:.3e}, CPU {again[1]:.3e}")
     say(f"  12b gat-cora full_graph_sm ({n} nodes, {snd.size} arcs): card "
-        f"equals the CPU within {MODEL_TOL['gat-cora']} (max abs "
-        f"difference {err:.3e})")
+        f"equals the CPU within {tol} (max abs difference {err:.3e}); "
+        f"each within {tol} of the CPU's float64 forward (card "
+        f"{gap(card, exact):.3e}, CPU {gap(cpu, exact):.3e})")
 
 
 def molecule_fields(rng, n_graphs, atoms, edges, triplets):

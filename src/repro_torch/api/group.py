@@ -6,9 +6,9 @@ A worker started with ``--num-processes N`` (N > 1) joins a
 card a process (gloo and the CPU with ``--device cpu``). The group is a
 rendezvous, never a collective: two processes bound to one card form an
 NCCL group that fails at its first collective, so nothing here issues
-one. Once the rendezvous is done every process leaves the group
-(``leave``), which frees its default group for a one-device ``dist``
-request, as in a worker of one process.
+one. Once the rendezvous is done every process checks in on the group's
+store and leaves the group (``leave``), which frees its default group
+for a one-device ``dist`` request, as in a worker of one process.
 
 At one device a mesh every process is a whole worker and needs nothing
 more. Above one, the group is one server. Process 0 is the worker
@@ -39,6 +39,9 @@ from .runtime import MeshFailure
 
 # the group store's key under which process 0 publishes its listener
 OWNER_KEY = "repro_torch/fabric/owner"
+# the group store's counts of the check-in before the group is left
+ARRIVED_KEY = "repro_torch/fabric/arrived"
+DEPARTED_KEY = "repro_torch/fabric/departed"
 
 
 class GroupCard(NamedTuple):
@@ -84,10 +87,52 @@ def check_cards(slices: Sequence[Sequence[GroupCard]]) -> None:
 
 
 def leave() -> None:
-    """Leave the group once its rendezvous is done."""
+    """Leave the group once its rendezvous is done: check in with every
+    other process (``check_in``), then destroy the group."""
     import torch.distributed as dist
     if dist.is_initialized():
+        check_in(_store(), dist.get_rank(), dist.get_world_size(),
+                 runtime.MESH_START_TIMEOUT_S)
         dist.destroy_process_group()
+
+
+def check_in(store, rank: int, n: int, timeout_s: float) -> None:
+    """Return once all ``n`` processes of a group have called this on its
+    ``store``, rank 0 (the store's host) last.
+
+    Torch runs no barrier after ``init_process_group``: a process that
+    destroys its group as soon as it has joined can close its gloo pairs
+    while a peer is still connecting them. So every process adds one to a
+    count and waits until it reaches ``n``; then the others count
+    themselves out and rank 0, whose store they still read, waits for
+    them. The store carries no collective, so processes that share a card
+    under NCCL may check in too. Raises ``RuntimeError`` naming the count
+    still missing after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    store.add(ARRIVED_KEY, 1)
+    _await_count(store, ARRIVED_KEY, n, n, "checked in", timeout_s,
+                 deadline)
+    if rank:
+        store.add(DEPARTED_KEY, 1)
+    else:
+        _await_count(store, DEPARTED_KEY, n - 1, n,
+                     "counted itself out after the check-in", timeout_s,
+                     deadline)
+
+
+def _await_count(store, key: str, want: int, n: int, what: str,
+                 timeout_s: float, deadline: float) -> None:
+    pause = 0.001
+    while True:
+        have = store.add(key, 0)
+        if have >= want:
+            return
+        if not _left(deadline):
+            raise RuntimeError(
+                f"{want - have} of the group's {n} processes never "
+                f"{what} within {timeout_s:g} s")
+        time.sleep(min(pause, _left(deadline)))
+        pause = min(2 * pause, 0.05)
 
 
 def _store():
@@ -238,10 +283,10 @@ class GroupOwner:
                 "authkey": owner._authkey.hex()}))
             owner._wait_check_ins(
                 time.monotonic() + runtime.MESH_START_TIMEOUT_S)
+            leave()
         except BaseException as exc:
             owner.close(2, f"process 0 could not start the group: {exc}")
             raise
-        leave()
         return owner
 
     def _wait_check_ins(self, deadline: float) -> None:

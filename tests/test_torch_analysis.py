@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")

@@ -12,13 +12,13 @@ the CLI refuses to run without a card unless ``--device cpu`` is given.
 The ``gpu`` test holds LIM001 to the built libraries on the card.
 """
 import json
-import os
 import subprocess
 import sys
 import tomllib
 from pathlib import Path
 
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -39,8 +39,7 @@ def rules(report):
 
 
 def _cli(*args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
 

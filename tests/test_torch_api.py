@@ -9,7 +9,6 @@ loads (the compiler replaced by a stub).
 """
 import dataclasses
 import json
-import os
 import subprocess
 import sys
 import threading
@@ -19,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 import torch_dist_jobs
 
 torch = pytest.importorskip("torch")
@@ -198,7 +198,7 @@ def test_session_validates_and_rejects_after_close():
 
 @pytest.mark.parametrize("what,item", [("devices", 5), ("mesh", 5),
                                        ("shard_ctx", 5)])
-def test_unported_session_parts_raise(what, item, monkeypatch):
+def test_unported_session_parts_raise(what, item):
     """The session's multi-device parts, once refused: ``devices=2``
     now serves a distributed request on a mesh of two CPU ranks (the
     known P=2 cut of rgg2d 1500 seed 3, k=8, C=32) and a single one in
@@ -208,7 +208,6 @@ def test_unported_session_parts_raise(what, item, monkeypatch):
     rank. (``item`` keeps the cases' ids as they were.)"""
     with torch_dist_jobs.time_limit(240):      # spawns mesh ranks
         if what == "devices":
-            monkeypatch.setenv("OMP_NUM_THREADS", "1")
             cfg = PartitionerConfig(contraction_limit=32)
             spec = api.GraphSpec("rgg2d", 1500, 8.0, seed=3)
             reqs = [api.PartitionRequest(graph=spec, k=8, devices=2,
@@ -258,8 +257,8 @@ def test_unported_session_parts_raise(what, item, monkeypatch):
 
 
 def _cli(module, *extra):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                    CUDA_VISIBLE_DEVICES="")
     return subprocess.run(
         [sys.executable, "-m", module, "--family", "rgg2d", "--n", "1500",
          "--k", "8", "--compare", "--trace", *extra],

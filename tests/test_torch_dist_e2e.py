@@ -10,6 +10,7 @@ sharded/dist/owner), 450 (P=2, unconstrained).
 """
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 pytest.importorskip("jax")
 pytest.importorskip("torch")

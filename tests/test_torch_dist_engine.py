@@ -22,6 +22,7 @@ Every port job must also return the same bytes on every rank.
 """
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 pytest.importorskip("jax")
 pytest.importorskip("torch")

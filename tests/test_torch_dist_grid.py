@@ -10,13 +10,13 @@ cuts: 321 (P=1), 320 / 323 / 293 (P=2: default, sharded, unconstrained),
 373 / 317 / 301 (P=4 grid).
 """
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 pytest.importorskip("jax")
 pytest.importorskip("torch")
@@ -86,8 +86,8 @@ def _strip(rec):
 def test_cli_devices_2_matches_the_reference_cli():
     flags = ["--family", "rgg2d", "--n", "4200", "--k", "4", "--devices",
              "2", "--trace"]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                    CUDA_VISIBLE_DEVICES="")
     ref = subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "torch_dist_jobs.py"),
          "refcli", *flags], cwd=ROOT, env=env, stdout=subprocess.PIPE,

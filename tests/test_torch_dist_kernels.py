@@ -21,18 +21,18 @@ to them on the card by ``chip_smoke.py``).
 Integers and one f32 gain from an int32 are compared exactly.
 """
 import json
-import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
+import torch_dist_jobs  # noqa: E402
 
 from repro.core import balance as ref_balance  # noqa: E402
 from repro.dist import dist_lp as ref_dist_lp  # noqa: E402
@@ -347,19 +347,17 @@ print(json.dumps(dict(info, total=total, wrong=wrong)))
 
 
 def test_distributed_init_joins_a_gloo_group_of_two():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     procs = []
-    for r in range(2):
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                   CUDA_VISIBLE_DEVICES="",
-                   REPRO_COORDINATOR=f"127.0.0.1:{port}",
-                   REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(r))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", _RANK], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    outs = [pr.communicate(timeout=120) for pr in procs]
+    with torch_dist_jobs.held_port() as port:
+        for r in range(2):
+            env = child_env(PYTHONPATH=str(ROOT / "src"),
+                            CUDA_VISIBLE_DEVICES="",
+                            REPRO_COORDINATOR=f"127.0.0.1:{port}",
+                            REPRO_NUM_PROCESSES="2", REPRO_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [pr.communicate(timeout=120) for pr in procs]
     for pr, (out, err) in zip(procs, outs):
         assert pr.returncode == 0, err[-2000:]
     infos = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]

@@ -30,6 +30,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -90,12 +91,6 @@ def limit():
         yield procs
 
 
-@pytest.fixture
-def one_thread(monkeypatch):
-    """Rank processes inherit this: one thread each."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
-
-
 def same(got, want):
     return (np.array_equal(got["part"], want["part"])
             and got["cut"] == want["cut"]
@@ -134,8 +129,7 @@ def test_a_mesh_whose_ranks_fail_to_start_raises(monkeypatch, one_thread):
 
 
 def _cli(*cmd, timeout=300):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "-m", *cmd], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -248,8 +242,7 @@ def test_fabric_worker_of_two_rank_meshes_serves_a_solo_answer(
         results, one_thread, limit):
     from repro_torch.fabric import FabricClient, FrontDoor, status_of
     ref, _ = results
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     with FrontDoor(lease_ttl_s=5.0) as fd:
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.fabric", "worker",
@@ -293,8 +286,10 @@ def test_fabric_group_of_two_processes_spans_one_mesh_of_two(
     ends both with exit 0."""
     from repro_torch.fabric import FabricClient, FrontDoor, status_of
     ref, _ = results
-    with FrontDoor(lease_ttl_s=5.0) as fd:
-        procs = torch_dist_jobs.fabric_group(fd, 2, 2, "span2", str(tmp_path))
+    with FrontDoor(lease_ttl_s=5.0) as fd, \
+            torch_dist_jobs.held_port() as port:
+        procs = torch_dist_jobs.fabric_group(fd, 2, 2, "span2", str(tmp_path),
+                                             port)
         limit.extend(procs)
         try:
             ready = [json.loads(p.stdout.readline() or "{}") for p in procs]

@@ -24,6 +24,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, \
@@ -52,10 +53,10 @@ def _smoke(arch):
 @pytest.fixture(scope="module")
 def smoke_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env["PYTHONPATH"] = os.pathsep.join(
+    env = child_env(PYTHONPATH=os.pathsep.join(
         [os.path.join(HERE, "..", "src")] +
-        [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+         if p]))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
          "--config", "smoke", "--device", "cpu", "--jobs", "4",

@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")

@@ -9,7 +9,6 @@ admitted ticket. Results are integers, compared exactly.
 """
 import dataclasses
 import json
-import os
 import signal
 import socket
 import struct
@@ -22,10 +21,12 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+import torch_dist_jobs  # noqa: E402
 from repro import api as ref_api  # noqa: E402
 from repro.core.deep_mgp import PartitionerConfig as RefConfig  # noqa: E402
 from repro.fabric import FabricClient as RefClient  # noqa: E402
@@ -342,19 +343,17 @@ def test_distributed_init_validates_ranks_then_names_the_engine():
     with pytest.raises(ValueError):
         distributed_init(coordinator_address="127.0.0.1:9",
                          num_processes=0)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    code = ("import json, torch.distributed as dist\n"
-            "from repro_torch.api.runtime import distributed_init\n"
-            f"info = distributed_init('127.0.0.1:{port}', 1, 0, "
-            "device='cpu')\n"
-            "dist.destroy_process_group()\n"
-            "print(json.dumps(info))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with torch_dist_jobs.held_port() as port:
+        code = ("import json, torch.distributed as dist\n"
+                "from repro_torch.api.runtime import distributed_init\n"
+                f"info = distributed_init('127.0.0.1:{port}', 1, 0, "
+                "device='cpu')\n"
+                "dist.destroy_process_group()\n"
+                "print(json.dumps(info))\n")
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
     assert out.returncode == 0, out.stderr
     info = json.loads(out.stdout.strip().splitlines()[-1])
     assert info == {"mode": "multi-process", "process_id": 0,
@@ -590,8 +589,8 @@ def test_client_connection_loss_is_structured():
 # ---------------------------------------------------------------------------
 
 def spawn_worker(fd, sid):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="", JAX_PLATFORMS="cpu")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+                    JAX_PLATFORMS="cpu")
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.fabric", "worker",
          "--frontdoor", f"{fd.host}:{fd.port}", "--server-id", sid,

@@ -11,8 +11,12 @@ fails only the mesh with a rank on it, the ticket fails over and process
 then, its rank hosts exit 1 and every rank ends. A carve that does not
 fit exits 2 with ``device_slices``' message, a mesh that would hold one
 card twice is refused (a pure check over listed cards), and a group
-missing a process exits 2 within its start-up bound. The spanning form's
-answers against the reference are in ``test_torch_dist_serving.py``.
+missing a process exits 2 within its start-up bound. Before a process
+leaves the group every process checks in on its store
+(``group.check_in``, rank 0 last): a caller waits for the others, and
+one whose peer never checks in raises, and its worker exits 2, naming
+the missing count. The spanning form's answers against the reference
+are in ``test_torch_dist_serving.py``.
 
 Last, the reference's own fault pinned: two JAX processes joined by
 ``repro.api.runtime.distributed_init`` each carve the same slice over
@@ -28,6 +32,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -131,8 +136,10 @@ def test_group_at_one_device_a_mesh_is_a_worker_a_process(limit, tmp_path):
                       "as": "spec", "k": 4, "devices": 1,
                       "backend": "single", "config": C64}
                      for i in range(4)])
-    with FrontDoor(lease_ttl_s=5.0) as fd:
-        procs = torch_dist_jobs.fabric_group(fd, 2, 1, "S", str(tmp_path))
+    with FrontDoor(lease_ttl_s=5.0) as fd, \
+            torch_dist_jobs.held_port() as port:
+        procs = torch_dist_jobs.fabric_group(fd, 2, 1, "S", str(tmp_path),
+                                             port)
         limit.extend(procs)
         try:
             # the in-process answers while the group starts
@@ -176,9 +183,10 @@ def test_a_dying_rank_host_fails_only_its_mesh(limit, tmp_path):
     (req,) = requests([{"graph": ["rgg2d", 1500, 8.0, 5], "as": "spec",
                         "k": 4, "devices": 2, "backend": "dist",
                         "config": C64}])
-    with FrontDoor(lease_ttl_s=5.0) as fd:
+    with FrontDoor(lease_ttl_s=5.0) as fd, \
+            torch_dist_jobs.held_port() as port:
         procs = torch_dist_jobs.fabric_group(fd, 4, 2, "span", str(tmp_path),
-                                             meshes=2)
+                                             port, meshes=2)
         limit.extend(procs)
         try:
             ready = ready_lines(procs)
@@ -234,9 +242,10 @@ def test_a_dying_rank_host_fails_only_its_mesh(limit, tmp_path):
 
 
 def test_a_carve_that_does_not_fit_exits_2(limit, tmp_path):
-    with FrontDoor(lease_ttl_s=5.0) as fd:
+    with FrontDoor(lease_ttl_s=5.0) as fd, \
+            torch_dist_jobs.held_port() as port:
         procs = torch_dist_jobs.fabric_group(fd, 2, 2, "big", str(tmp_path),
-                                             meshes=2)
+                                             port, meshes=2)
         limit.extend(procs)
         try:
             codes = [p.wait(timeout=120) for p in procs]
@@ -249,6 +258,75 @@ def test_a_carve_that_does_not_fit_exits_2(limit, tmp_path):
     errs = [(tmp_path / f"p{i}.err").read_text() for i in range(2)]
     assert codes == [2, 2], errs
     assert all(want in e for e in errs)
+
+
+# ---------------------------------------------------------------------------
+# the check-in before a process leaves the group
+# ---------------------------------------------------------------------------
+
+def stores(kind):
+    """Two handles of one store, for ranks 0 and 1: one ``HashStore``, or
+    a ``TCPStore`` on a port of its own (rank 0's serves it)."""
+    import datetime
+    if kind == "hash":
+        store = torch.distributed.HashStore()
+        return store, store
+    timeout = datetime.timedelta(seconds=30)
+    server = torch.distributed.TCPStore("127.0.0.1", 0, 2, True,
+                                        timeout=timeout,
+                                        wait_for_workers=False)
+    return server, torch.distributed.TCPStore("127.0.0.1", server.port, 2,
+                                              False, timeout=timeout)
+
+
+@pytest.mark.parametrize("kind", ["hash", "tcp"])
+@pytest.mark.parametrize("first", [0, 1])
+def test_check_in_returns_only_once_every_process_has_checked_in(kind,
+                                                                 first):
+    """The first caller, rank 0 or 1, waits for the second; rank 0 (the
+    store's host in a group) returns only after rank 1 has counted itself
+    out."""
+    import threading
+    store = stores(kind)
+    done = {}
+
+    def call(rank):
+        group.check_in(store[rank], rank, 2, 30.0)
+        done[rank] = time.monotonic()
+
+    t = threading.Thread(target=call, args=(first,))
+    t.start()
+    time.sleep(0.5)
+    assert t.is_alive() and not done
+    second_at = time.monotonic()
+    call(1 - first)
+    t.join(30.0)
+    assert not t.is_alive()
+    assert min(done.values()) >= second_at
+    assert store[0].add(group.ARRIVED_KEY, 0) == 2
+    assert store[0].add(group.DEPARTED_KEY, 0) == 1
+
+
+@pytest.mark.parametrize("rank, n, peers_in, missing", [
+    (0, 2, 0, "1 of the group's 2 processes never checked in within 0.3 s"),
+    (1, 2, 0, "1 of the group's 2 processes never checked in within 0.3 s"),
+    (0, 3, 0, "2 of the group's 3 processes never checked in within 0.3 s"),
+    (0, 2, 1, "1 of the group's 2 processes never counted itself out after "
+     "the check-in within 0.3 s"),
+])
+def test_check_in_alone_raises_naming_the_missing_count(rank, n, peers_in,
+                                                        missing):
+    """A caller whose peers never check in (or, for rank 0, check in and
+    never count themselves out) raises within its bound, naming how many
+    are missing."""
+    store = torch.distributed.HashStore()
+    if peers_in:
+        store.add(group.ARRIVED_KEY, peers_in)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError) as exc:
+        group.check_in(store, rank, n, 0.3)
+    assert str(exc.value) == missing
+    assert 0.3 <= time.monotonic() - t0 < 10
 
 
 def card(process, device="cuda:0", uuid="GPU-0", hostname="h0"):
@@ -296,23 +374,65 @@ def test_a_group_missing_a_process_exits_2_within_its_bound(limit):
     """Process 0 of one group of two and process 1 of another start alone
     (the start-up bound cut to 1 s): each exits 2, naming its group,
     within the bound."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     t0 = time.monotonic()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", START, "worker", "--devices-per-mesh", "2",
-         "--device", "cpu", "--coordinator",
-         f"127.0.0.1:{torch_dist_jobs._free_port()}", "--num-processes",
-         "2", "--process-id", str(alone)], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for alone in (0, 1)]
-    limit.extend(procs)
-    outs = [p.communicate(timeout=120) for p in procs]
+    with torch_dist_jobs.held_port() as port0, \
+            torch_dist_jobs.held_port() as port1:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", START, "worker", "--devices-per-mesh",
+             "2", "--device", "cpu", "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", "2", "--process-id", str(alone)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+            for alone, port in ((0, port0), (1, port1))]
+        limit.extend(procs)
+        outs = [p.communicate(timeout=120) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 2, err[-2000:]
         assert out == ""
         assert "group of 2 process(es) did not form within 1 s" in err
     assert time.monotonic() - t0 < 60
+
+
+SILENT = ("import sys, time\n"
+          "from repro_torch.api import runtime\n"
+          "runtime.distributed_init(sys.argv[1], 2, int(sys.argv[2]), "
+          "device='cpu', timeout_s=120)\n"
+          "print('joined', flush=True)\n"
+          "time.sleep(300)\n")
+
+
+@pytest.mark.parametrize("silent", [1, 0])
+def test_a_process_whose_peer_never_checks_in_exits_2(limit, silent):
+    """A worker process whose peer joins the group and never checks in
+    (the check-in's bound cut to 10 s) exits 2 naming the missing count,
+    with no ready line, whether the silent peer is the store's host or
+    not."""
+    env = child_env(PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    code = START.replace("= 1.0", "= 10.0")
+    with torch_dist_jobs.held_port() as port:
+        addr = f"127.0.0.1:{port}"
+        peer = subprocess.Popen(
+            [sys.executable, "-c", SILENT, addr, str(silent)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        worker = subprocess.Popen(
+            [sys.executable, "-c", code, "worker", "--device", "cpu",
+             "--coordinator", addr, "--num-processes", "2",
+             "--process-id", str(1 - silent)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        limit.extend([peer, worker])
+        try:
+            out, err = worker.communicate(timeout=120)
+            joined = peer.stdout.readline()
+        finally:
+            peer.kill()
+            peer.communicate()
+    assert joined == "joined\n"
+    assert worker.returncode == 2, err[-2000:]
+    assert out == ""
+    assert ("fabric worker: 1 of the group's 2 processes never checked in "
+            "within 10 s") in err
 
 
 # ---------------------------------------------------------------------------
@@ -329,19 +449,18 @@ def test_reference_carves_meshes_over_the_whole_group(limit):
     """Two JAX processes joined by the reference's ``distributed_init``
     both see the group's two devices, one local to each, and both carve
     the same slice over them: each would build, and register, a server on
-    a mesh that spans the other process (ROADMAP queue 3, item 7)."""
+    a mesh that spans the other process (ROADMAP queue 3, item 8)."""
     pytest.importorskip("jax")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
-    env.pop("XLA_FLAGS", None)
-    coordinator = f"127.0.0.1:{torch_dist_jobs._free_port()}"
-    procs = [subprocess.Popen([sys.executable, "-c", PROBE, coordinator,
-                               str(i)], cwd=ROOT, env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for i in range(2)]
-    limit.extend(procs)
-    outs = [p.communicate(timeout=120) for p in procs]
+    env = child_env(drop=("XLA_FLAGS",), PYTHONPATH=str(ROOT / "src"),
+                    JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
+    with torch_dist_jobs.held_port() as port:
+        procs = [subprocess.Popen([sys.executable, "-c", PROBE,
+                                   f"127.0.0.1:{port}", str(i)], cwd=ROOT,
+                                  env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for i in range(2)]
+        limit.extend(procs)
+        outs = [p.communicate(timeout=120) for p in procs]
     assert [p.returncode for p in procs] == [0, 0], [e for _, e in outs]
     slices = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
     assert slices[0] == slices[1] and len(slices[0]) == 2

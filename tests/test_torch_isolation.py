@@ -8,13 +8,13 @@ Each check runs in a fresh interpreter with CUDA hidden, so the test
 process's own imports of JAX cannot mask a leak.
 """
 import json
-import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 pytest.importorskip("torch")
 
@@ -23,7 +23,7 @@ SRC = ROOT / "src"
 
 
 def _run(code: str, cwd=ROOT, timeout=300):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -135,7 +135,7 @@ def test_modules_walked_include_the_serving_tier():
 
 
 def test_partition_cli_without_cuda_exits_nonzero_unless_cpu_is_asked_for():
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.partition",
            "--family", "rgg2d", "--n", "300", "--k", "2"]
     out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -155,7 +155,7 @@ def _assert_no_result(out):
 
 
 def test_chip_smoke_fails_without_a_gpu():
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = child_env(CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
@@ -165,8 +165,7 @@ def test_chip_smoke_fails_without_a_gpu():
 
 def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["CUDA_VISIBLE_DEVICES"] = ""
+    env = child_env(drop=("PYTHONPATH",), CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True,
                          timeout=300)
@@ -187,7 +186,7 @@ def test_modules_walked_include_the_distributed_engine():
 def test_partition_cli_with_devices_refuses_without_cuda():
     """``--devices 2`` spawns a rank a card: without cards it exits 2 and
     prints nothing, unless ``--device cpu`` asks for CPU ranks."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.partition",
            "--family", "rgg2d", "--n", "300", "--k", "2", "--devices", "2"]
     out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -211,7 +210,7 @@ def test_fabric_worker_cli_refuses_without_cuda_and_dist():
     2 and prints no ready line, with meshes of one or two cards alike,
     and so does a worker that joins a group of several processes (before
     it joins)."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.fabric", "worker"]
     for extra, text in (([], "no CUDA device"),
                         (["--devices-per-mesh", "2"], "no CUDA device"),
@@ -346,8 +345,7 @@ def test_modules_walked_include_the_transformer_and_lm_serving():
 def test_serve_lm_cli_refuses_without_cuda_unless_cpu_is_asked_for():
     """The LM serving CLI runs on the card by default: without one it
     exits 2 and prints nothing; ``--device cpu`` serves on the CPU."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC),
-               OMP_NUM_THREADS="1")
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
            "gemma-2b", "--config", "smoke", "--batch", "2", "--prompt-len",
            "3", "--gen-len", "4", "--max-len", "8"]
@@ -376,8 +374,7 @@ def test_training_clis_refuse_without_cuda(cli):
     """Both training CLIs run on the card by default: without one they
     exit 2 and print nothing (``--device cpu`` runs them: the test files
     of training drive both on the CPU)."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC),
-               OMP_NUM_THREADS="1")
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", f"repro_torch.launch.{cli}"]
     if cli == "train":
         cmd += ["--arch", "gat-cora", "--steps", "2"]
@@ -397,8 +394,7 @@ def test_modules_walked_include_the_launch_steps():
 def test_dryrun_cli_refuses_without_cuda_unless_cpu_is_asked_for():
     """The dry-run makes fake CUDA tensors by default: without a card it
     exits 2 and prints nothing; ``--device cpu`` runs the cell."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC),
-               OMP_NUM_THREADS="1")
+    env = child_env(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cell",
            "dlrm-rm2/serve_p99", "--config", "smoke"]
     out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,

@@ -28,6 +28,7 @@ import functools
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")

@@ -36,6 +36,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
@@ -574,8 +575,8 @@ def test_embedding_bag_kernel_traps_on_an_unchecked_index():
         "out = eb._gather(idx, table)\n"
         "torch.cuda.synchronize()\n"
         "print('NOT STOPPED', float(out.sum()))\n")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode != 0, proc.stdout
     assert "NOT STOPPED" not in proc.stdout
     assert "CUDA error" in proc.stderr, proc.stderr[-2000:]

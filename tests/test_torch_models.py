@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")

@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 pytest.importorskip("jax")
 pytest.importorskip("torch")

@@ -12,7 +12,6 @@ the reference CLI. Workers are single-device sessions on the CPU here
 """
 import dataclasses
 import json
-import os
 import random
 import subprocess
 import sys
@@ -24,6 +23,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 import torch_dist_jobs
 
 torch = pytest.importorskip("torch")
@@ -428,7 +428,6 @@ def test_multi_device_meshes_raise_naming_the_distributed_item(
     mesh) and a single one beside it, and stops every rank at close.
     The card default with too few cards raises, naming the carve."""
     with torch_dist_jobs.time_limit(240):      # spawns mesh ranks
-        monkeypatch.setenv("OMP_NUM_THREADS", "1")
         cfg = carry.config_from_dict(dataclasses.asdict(REF_CFG))
         spec = api.GraphSpec("rgg2d", 1200, 8.0, seed=5)
         dist_req = api.PartitionRequest(graph=spec, k=4, devices=2,
@@ -665,7 +664,7 @@ def test_submit_after_close_raises_and_close_resolves_queued():
 # ---------------------------------------------------------------------------
 
 def _serve_cli(module, *extra, cuda_hidden=True):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    env = child_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     if cuda_hidden:
         env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.run(

@@ -15,6 +15,7 @@ import types
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")

@@ -39,6 +39,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import child_env, one_thread  # noqa: F401
 from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs import load_all
@@ -57,10 +58,10 @@ DENSE = ("gemma-2b", "gat-cora", "dlrm-rm2")
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("steps")
-    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
-    env["PYTHONPATH"] = os.pathsep.join(
+    env = child_env(PYTHONPATH=os.pathsep.join(
         [os.path.join(HERE, "..", "src")] +
-        [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+         if p]), JAX_PLATFORMS="cpu")
     script = os.path.join(HERE, "torch_steps_jobs.py")
     procs = {side: subprocess.Popen(
         [sys.executable, script, side, str(d / f"{side}.pkl")], env=env,

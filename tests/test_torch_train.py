@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -62,15 +63,6 @@ from torch_fake_mesh import fake_mesh  # noqa: E402
 CPU = "cpu"
 OPT_SHARE = 1e-6
 EXAMPLE_LOSS_REL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Small ops on many threads spend their time in the pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def np_tree(tree):

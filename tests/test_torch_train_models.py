@@ -33,6 +33,7 @@ import functools
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -70,15 +71,6 @@ LM_BF16_SHARE = 2.0 ** -4
 MODEL_TOL = 1e-4
 REF_ENTRIES = ref_configs.load_all()
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Small ops on many threads spend their time in the pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def strict(fn, *args):

@@ -34,6 +34,7 @@ import types
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
@@ -57,15 +58,6 @@ DTYPES = ["float32", "bfloat16"]
 F32_TOL = 2e-4
 BF16_TOL = 2.0 ** -6       # of the largest |value|
 REF_ENTRIES = ref_configs.load_all()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Small ops on many threads spend their time in the pool."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # XLA's optimisation level 0 compiles in a third of the time; the

@@ -44,6 +44,7 @@ import socket
 import sys
 
 import numpy as np
+from torch_threads import child_env
 
 TIMINGS = ("time_s", "exchange_s", "precontract_s")
 
@@ -354,9 +355,8 @@ def start_both(jobs, tmp_dir):
     jobs_path = os.path.join(tmp_dir, "jobs.json")
     with open(jobs_path, "w") as fh:
         json.dump(jobs, fh)
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
-               JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="",
-               OMP_NUM_THREADS="1")
+    env = child_env(PYTHONPATH=os.path.join(root, "src"),
+                    JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
     procs = {}
     for which in ("ref", "port"):
         out = os.path.join(tmp_dir, f"{which}.pkl")
@@ -472,24 +472,37 @@ def _rank(rank, P, port, jobs, path):
     dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def held_port():
+    """A free port of 127.0.0.1 for a group's coordinator, held for the
+    block. The socket stays bound with ``SO_REUSEADDR`` and never listens:
+    the kernel then gives the port to no other ``bind`` to port 0 and to
+    no outgoing connection, while the coordinator's store, which binds
+    with ``SO_REUSEADDR`` too, still can. Released at once, the port could
+    go to another test's socket before the coordinator's process gets to
+    bind it."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    try:
+        yield s.getsockname()[1]
+    finally:
+        s.close()
 
 
-def fabric_group(frontdoor, n, devices_per_mesh, server_id, err_dir,
+def fabric_group(frontdoor, n, devices_per_mesh, server_id, err_dir, port,
                  meshes=1):
     """Start the ``n`` processes of a fabric worker group (``python -m
     repro_torch.launch.fabric worker --num-processes n``, ``--device cpu``
-    over gloo, no card visible) registered with ``frontdoor``: their
-    ``Popen``s, process 0 first, each reading its stdout (the ready line)
-    and writing its stderr to ``err_dir/p<I>.err``."""
+    over gloo, no card visible) registered with ``frontdoor``, their
+    coordinator at ``port`` (``held_port``): their ``Popen``s, process 0
+    first, each reading its stdout (the ready line) and writing its stderr
+    to ``err_dir/p<I>.err``."""
     import subprocess
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    coordinator = f"127.0.0.1:{_free_port()}"
+    env = child_env(PYTHONPATH=os.path.join(root, "src"),
+                    CUDA_VISIBLE_DEVICES="")
+    coordinator = f"127.0.0.1:{port}"
     procs = []
     for i in range(n):
         with open(os.path.join(err_dir, f"p{i}.err"), "w") as err:
@@ -529,18 +542,19 @@ def _port_main(jobs, out):
         by_p.setdefault(j["P"], []).append(j)
     tmp = os.path.dirname(os.path.abspath(out))
     procs, paths = [], []
-    for P, js in sorted(by_p.items()):
-        port = _free_port()
-        path = os.path.join(tmp, f"port-P{P}.pkl")
-        paths.append(path)
-        for r in range(P):
-            pr = ctx.Process(target=_rank, args=(r, P, port, js, path))
-            pr.start()
-            procs.append(pr)
-    # the serving jobs spawn their own meshes, from this process
-    res = {j["id"]: _run(j, "repro_torch") for j in owner}
-    for pr in procs:
-        pr.join()
+    with contextlib.ExitStack() as ports:
+        for P, js in sorted(by_p.items()):
+            port = ports.enter_context(held_port())
+            path = os.path.join(tmp, f"port-P{P}.pkl")
+            paths.append(path)
+            for r in range(P):
+                pr = ctx.Process(target=_rank, args=(r, P, port, js, path))
+                pr.start()
+                procs.append(pr)
+        # the serving jobs spawn their own meshes, from this process
+        res = {j["id"]: _run(j, "repro_torch") for j in owner}
+        for pr in procs:
+            pr.join()
     bad = [pr.exitcode for pr in procs if pr.exitcode != 0]
     if bad:
         raise SystemExit(f"port ranks failed: exit codes {bad}")

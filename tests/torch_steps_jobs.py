@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
 import sys
 import zlib
 
@@ -426,12 +425,6 @@ def microbatches_split(mesh):
     return out["split"], out["plain"]
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank(rank, port, out_path):
     import torch
     import torch.distributed as dist
@@ -461,9 +454,10 @@ def _rank(rank, port, out_path):
 
 def _port_main(out_path):
     import torch.multiprocessing as mp
-    port = _free_port()
-    mp.start_processes(_rank, args=(port, out_path), nprocs=4,
-                       start_method="spawn")
+    from torch_dist_jobs import held_port
+    with held_port() as port:
+        mp.start_processes(_rank, args=(port, out_path), nprocs=4,
+                           start_method="spawn")
 
 
 if __name__ == "__main__":
